@@ -1,0 +1,650 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run on any error:
+
+* build: compiles the three CUDA kernels from ``src/repro_torch/kernels/
+  csrc`` with ``nvcc`` (one process per source, in parallel);
+* K: every kernel against its plain PyTorch version on the card at the
+  main path's shapes (the RAR tiers, the embedder, llama3-8b), with its
+  time, the plain version's, a PyTorch library call's and the bound;
+* R: ``MicrobatchRAR`` serving the ``rar_throughput`` workload (pool 64,
+  2 passes, microbatch 8 and 32) on the card and on the CPU in the same
+  process, with identical Outcome streams, FM calls and stores required
+  (R1: precomputed hash embeddings; R2: the port's embedder on the card);
+* L: ``ServingEngine.generate_bucketed`` at the full width of llama3-8b
+  (bf16, random weights from a seed) serving 8 mixed-length requests.
+
+The launch counters are zeroed right before each main-path phase and read
+right after it; a kernel of the path that did not launch fails the run.
+The last lines are the kernels' JSON, the card's name and power limit,
+and ``{"ok": true, "device": ...}``.
+
+:func:`trace` (not part of the run above) profiles the two main paths and
+prints where the card's time goes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12                # f32 outside the tensor cores
+BF16_FLOPS = 989e12              # bf16 dense tensor-core peak
+TOPK_TOL = 1e-6
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SEEDS = {"weak": 0, "strong": 1, "embedder": 2, "llama": 3}
+POOL, PASSES, MICROBATCHES, SEQ_LEN = 64, 2, (8, 32), 16
+JAX_STRONG_CALLS = 192           # BENCH_rar_throughput.json, per 128
+LLAMA_LENGTHS = (17, 45, 64, 96, 130, 180, 240, 300)
+LLAMA_MAX_NEW = 8
+DEV = "cuda"
+LLAMA_CONFIG = "FULL"            # llama3_8b.FULL: all 32 layers
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi`` gives
+    them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def bound(bytes_moved, flops, rate):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase K: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def phase_k(torch):
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import memory_topk as mt
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(0)
+    rows = {}
+
+    def record(name, key, err, ms, plain_ms, lib_ms, b):
+        log(f"K {name} {key}: max_abs_err={err:.3e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b[0]:.5f} ({b[1]})")
+        rows.setdefault(name, []).append(
+            dict(key=key, err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=b[0], bound_by=b[1]))
+
+    # -- store read: C in {4096, 65536} x 384, ties and signed zeros ------
+    for C in (4096, 65536):
+        mem = rng.normal(size=(C, 384)).astype(np.float32)
+        mem /= np.linalg.norm(mem, axis=1, keepdims=True)
+        mem[C // 2] = mem[C - 1] = mem[C // 3]          # exact ties
+        mem[1], mem[2] = 0.0, -0.0                      # sims of +-0
+        bits = (rng.random(C) < 0.7).astype(np.int32) * mt.MASK_VALID
+        memp, maskp = mt.to_padded_layout(torch.from_numpy(mem),
+                                          torch.from_numpy(bits))
+        memp, maskp = memp.to(dev), maskp.to(dev)
+        valid = (maskp[:, 0] & 1) == 1
+        for B in (1, 8, 32):
+            qs = rng.normal(size=(B, 384)).astype(np.float32)
+            qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+            qs[0] = mem[C // 3]
+            qs = torch.from_numpy(qs).to(dev)
+            for k in (1, 4, 8):
+                cs, ci = mt.memory_topk_batch_padded_cuda(memp, qs, maskp, k)
+                ps, pi = mt.memory_topk_batch_padded_plain(memp, qs, maskp,
+                                                           k)
+                torch.cuda.synchronize()
+                if not torch.equal(ci, pi):
+                    raise AssertionError(f"top-k rows differ at C={C} "
+                                         f"B={B} k={k}")
+                err = (cs - ps).abs().max().item()
+                if err > TOPK_TOL:
+                    raise AssertionError(f"top-k sims off by {err}")
+
+                def lib():
+                    s = torch.where(valid[None], qs @ memp.T, -2.0)
+                    return torch.topk(s, k, dim=1)
+                b = bound(memp.numel() * 4 + maskp.numel() * 4 +
+                          qs.numel() * 4 + B * k * 8,
+                          2 * C * 384 * B, F32_FLOPS)
+                record("memory_topk", f"C={C} E=384 B={B} k={k}", err,
+                       time_ms(torch, lambda: mt.memory_topk_batch_padded_cuda(
+                           memp, qs, maskp, k)),
+                       time_ms(torch, lambda: mt.memory_topk_batch_padded_plain(
+                           memp, qs, maskp, k)),
+                       time_ms(torch, lib), b)
+
+    # -- attention at the tiers', the embedder's and llama3-8b's shapes ---
+    def attn_case(tag, B, Sq, H, KV, hd, dtype, window=0, causal=True,
+                  kv_len=None):
+        g = torch.Generator(device=dev).manual_seed(Sq * 1000 + H)
+        q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, Sq, KV, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, Sq, KV, hd), generator=g, device=dev).to(dtype)
+        kl = None if kv_len is None else torch.full(
+            (B,), kv_len, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, window=window, kv_len=kl)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        if not err <= tol:
+            raise AssertionError(f"flash {tag} Sq={Sq}: err {err} > {tol}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None
+        if window or kl is not None or not causal:
+            pos = torch.arange(Sq, device=dev)
+            d = pos[:, None] - pos[None, :]
+            mask = torch.ones((Sq, Sq), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= d >= 0
+            if window:
+                mask &= d < window
+            if kl is not None:
+                mask = mask & (pos[None, :] < kv_len)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+        pairs = B * H * sum(
+            sum(1 for j in range(Sq)
+                if (not causal or j <= i) and (not window or i - j < window)
+                and (kv_len is None or j < kv_len)) for i in range(Sq))
+        es = q.element_size()
+        b = bound((2 * q.numel() + 2 * k.numel()) * es, 4 * pairs * hd,
+                  BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        record("flash_attention",
+               f"{tag} B={B} Sq={Sq} H={H} KV={KV} hd={hd} "
+               f"{str(dtype)[6:]} window={window} causal={causal}", err,
+               time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, **kw)),
+               time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
+                                                               **kw)),
+               time_ms(torch, lib), b)
+
+    def decode_case(tag, B, M, cl, H, KV, hd, dtype, window=0):
+        g = torch.Generator(device=dev).manual_seed(M * 1000 + H)
+        q = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, M, KV, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, M, KV, hd), generator=g, device=dev).to(dtype)
+        got = da.decode_attention_cuda(q, k, v, cl, window=window)
+        want = da.decode_attention_plain(q, k, v, cl, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        if not err <= tol:
+            raise AssertionError(f"decode {tag} M={M}: err {err} > {tol}")
+        lo = max(0, cl - window) if window else 0
+        qt = q[:, :, None]
+        kt = k[:, lo:cl].transpose(1, 2)
+        vt = v[:, lo:cl].transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+        n = cl - lo
+        es = q.element_size()
+        b = bound((2 * q.numel() + 2 * B * n * KV * hd) * es,
+                  4 * B * H * n * hd,
+                  BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        record("decode_attention",
+               f"{tag} B={B} M={M} cache_len={cl} H={H} KV={KV} hd={hd} "
+               f"{str(dtype)[6:]} window={window}", err,
+               time_ms(torch, lambda: da.decode_attention_cuda(
+                   q, k, v, cl, window=window)),
+               time_ms(torch, lambda: da.decode_attention_plain(
+                   q, k, v, cl, window=window)),
+               time_ms(torch, lib), b)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for Sq in (1, 7, 17, 26, 130):
+        attn_case("rar-weak", 8, Sq, 4, 4, 32, f32)
+        attn_case("rar-strong", 8, Sq, 6, 6, 32, f32)
+        decode_case("rar-weak", 8, Sq + 2, Sq + 1, 4, 4, 32, f32)
+        decode_case("rar-strong", 8, Sq + 2, Sq + 1, 6, 6, 32, f32)
+    attn_case("embedder", 32, 16, 4, 4, 32, f32, causal=False, kv_len=10)
+    for Sq in (17, 130, 300):
+        for window in (0, 64):
+            attn_case("llama3-8b", 1, Sq, 32, 8, 128, bf16, window=window)
+            decode_case("llama3-8b", 1, Sq + LLAMA_MAX_NEW, Sq + 1, 32, 8,
+                        128, bf16, window=window)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase R: the RAR microbatch path, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def workload():
+    import numpy as np
+
+    from repro_torch.data.tokenizer import Vocab
+    vocab = Vocab(n_domains=3)
+    prompts, greqs, embs = [], [], []
+    i = 0
+    while len(prompts) < POOL:
+        d, s, x = i % 3, (i // 3) % 16, (i // 48) % 10
+        i += 1
+        prompts.append(np.asarray(vocab.question(d, s, x), np.int32))
+        greqs.append(np.asarray(vocab.guide_request(d, s), np.int32))
+        rng = np.random.default_rng(abs(hash((d, s, x))) % (2 ** 31))
+        e = rng.normal(size=384).astype(np.float32)
+        embs.append(e / np.linalg.norm(e))
+    return vocab, prompts, greqs, np.stack(embs)
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab):
+    import numpy as np
+
+    from repro_torch.configs import rar_system
+    from repro_torch.core import embedder
+    from repro_torch.core.fm import FMTier
+    from repro_torch.core.pipeline import MicrobatchRAR
+
+    weak = FMTier.create("weak", rar_system.WEAK,
+                         to_device(tiers[0], device), vocab)
+    strong = FMTier.create("strong", rar_system.STRONG,
+                           to_device(tiers[1], device), vocab)
+    seen = []
+
+    def embed_batch(ps):
+        toks = np.zeros((len(ps), SEQ_LEN), np.int32)
+        for i, p in enumerate(ps):
+            toks[i, :len(p)] = p
+        out = embedder.embed(rar_system.EMBEDDER, emb_params, toks)
+        seen.append(out.cpu())
+        return out
+
+    ctrl = MicrobatchRAR(weak, strong, None, lambda e, k: False,
+                         rar_system.make_rar_config(), device=device,
+                         embed_batch_fn=(None if emb_params is None
+                                         else embed_batch))
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(PASSES):
+        for start in range(0, POOL, mb):
+            sl = slice(start, start + mb)
+            outs += ctrl.process_batch(
+                prompts[sl], greqs[sl],
+                keys=list(range(start, start + len(prompts[sl]))),
+                embs=None if emb_params is not None else embs[sl])
+    if device.type == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return ctrl, outs, dt, seen
+
+
+def same_store(a, b, emb_atol=0.0):
+    """Every store field equal; ``emb`` within ``emb_atol`` (R2 stores
+    embeddings computed on either device)."""
+    import torch
+    err = (a.emb.cpu() - b.emb.cpu()).abs().max().item()
+    if err > emb_atol:
+        raise AssertionError(f"store emb differs card vs CPU by {err}")
+    for f in ("guide", "has_guide", "hard", "valid", "added_at"):
+        if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()):
+            raise AssertionError(f"store field {f} differs card vs CPU")
+    if a.ptr != b.ptr:
+        raise AssertionError("store ptr differs card vs CPU")
+
+
+def min_logit_gap(torch, tiers, prompts, greqs, dev):
+    import numpy as np
+
+    from repro_torch.configs import rar_system
+    from repro_torch.models import prefill
+    gaps = []
+    for cfg, params, batch in ((rar_system.WEAK, tiers[0], prompts),
+                               (rar_system.STRONG, tiers[1], prompts),
+                               (rar_system.STRONG, tiers[1], greqs)):
+        p = to_device(params, dev)
+        by_len = {}
+        for x in batch:
+            by_len.setdefault(len(x), []).append(x)
+        for xs in by_len.values():
+            t = torch.from_numpy(np.stack(xs)).long().to(dev)
+            logits = prefill(cfg, p, {"tokens": t}, t.shape[1] + 1)[0]
+            top = torch.topk(logits, 2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).min().item())
+    return min(gaps)
+
+
+def phase_r(torch, ops):
+    import numpy as np
+
+    from repro_torch.configs import rar_system
+    from repro_torch.core import embedder
+    from repro_torch.models import init_params
+
+    cuda, cpu = torch.device(DEV), torch.device("cpu")
+    vocab, prompts, greqs, embs = workload()
+    tiers = (init_params(rar_system.WEAK, SEEDS["weak"], device=cuda),
+             init_params(rar_system.STRONG, SEEDS["strong"], device=cuda))
+    log(f"R seeds: weak={SEEDS['weak']} strong={SEEDS['strong']} "
+        f"embedder={SEEDS['embedder']} (torch.Generator); store 4096 x 384")
+    log(f"R min top-2 logit gap over the served prompts' first tokens: "
+        f"{min_logit_gap(torch, tiers, prompts, greqs, cuda):.6f}")
+    counts = {}
+    emb_cuda = embedder.init_params(rar_system.EMBEDDER, SEEDS["embedder"],
+                                    device=cuda)
+    results = {}
+    for phase, emb_params in (("R1", None), ("R2", emb_cuda)):
+        for mb in MICROBATCHES:
+            ops.reset_launches()
+            c_ctrl, c_outs, c_dt, c_seen = serve_rar(
+                cuda, tiers, emb_params, mb, prompts, greqs, embs, vocab)
+            got = ops.launch_counts()
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+            log(f"{phase} mb={mb} launches on the card: {got}")
+            h_ctrl, h_outs, h_dt, h_seen = serve_rar(
+                cpu, tiers, None if emb_params is None else
+                to_device(emb_params, cpu), mb, prompts, greqs, embs, vocab)
+            if [dataclasses.astuple(o) for o in c_outs] != \
+                    [dataclasses.astuple(o) for o in h_outs]:
+                raise AssertionError(f"{phase} mb={mb}: Outcome streams "
+                                     f"differ card vs CPU")
+            for tier in ("weak", "strong"):
+                a = getattr(c_ctrl, tier).engine.stats()
+                b = getattr(h_ctrl, tier).engine.stats()
+                if a != b:
+                    raise AssertionError(f"{phase} {tier} engine stats "
+                                         f"differ: {a} vs {b}")
+            same_store(c_ctrl.memory, h_ctrl.memory,
+                       0.0 if emb_params is None else 1e-5)
+            strong = sum(o.strong_calls for o in c_outs)
+            n = PASSES * POOL
+            # the JAX record is for the hash embeddings (R1) only
+            record = (f" (JAX record {JAX_STRONG_CALLS})"
+                      if emb_params is None else "")
+            line = (f"{phase} mb={mb}: strong calls {strong} per {n} "
+                    f"requests{record}; weak calls "
+                    f"{c_ctrl.weak.calls}; card {n / c_dt:.1f} req/s "
+                    f"({c_dt * 1e3 / n:.3f} ms/req); CPU {n / h_dt:.1f} "
+                    f"req/s")
+            if emb_params is not None:
+                a = torch.cat(c_seen)
+                b = torch.cat(h_seen)
+                cos = (a * b).sum(-1) / a.norm(dim=-1) / b.norm(dim=-1)
+                if cos.min().item() < 1 - 1e-5:
+                    raise AssertionError(f"R2 embedding cosine "
+                                         f"{cos.min().item()}")
+                e = a[:POOL].numpy()
+                sims = e @ e.T
+                np.fill_diagonal(sims, 0.0)
+                margin = np.abs(sims - 0.6).min()
+                line += (f"; embedding cosine card/CPU min "
+                         f"{cos.min().item():.8f}; closest pairwise sim to "
+                         f"the 0.6 threshold is {margin:.4f} away")
+            log(line)
+            results[f"{phase}_mb{mb}"] = dict(strong_calls=strong,
+                                              req_per_s=n / c_dt)
+    for k in ("memory_topk", "flash_attention", "decode_attention"):
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"Phase R never launched {k}")
+    return counts, results
+
+
+# ---------------------------------------------------------------------------
+# Phase L: llama3-8b at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_l(torch, ops):
+    import numpy as np
+
+    from repro_torch.configs import llama3_8b
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = getattr(llama3_8b, LLAMA_CONFIG)
+    cuda = torch.device(DEV)
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEEDS["llama"], device=cuda)
+    torch.cuda.synchronize()
+    log(f"L {cfg.name}: {cfg.num_layers} layers (no cut), d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+        f"{cfg.vocab_size}, {cfg.param_dtype}; random weights seed "
+        f"{SEEDS['llama']} in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in LLAMA_LENGTHS]
+    engine = ServingEngine(cfg, params)
+    engine.generate_bucketed(prompts[:1], 2)        # warm the allocator
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate_bucketed(prompts, LLAMA_MAX_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if out.shape != (len(prompts), LLAMA_MAX_NEW) or out.min() < 0 or \
+            out.max() >= cfg.vocab_size:
+        raise AssertionError(f"L: bad tokens {out.shape} "
+                             f"[{out.min()}, {out.max()}]")
+    for k in ("flash_attention", "decode_attention"):
+        if counts[k] == 0:
+            raise AssertionError(f"Phase L never launched {k}")
+    toks = sum(LLAMA_LENGTHS) + len(prompts) * LLAMA_MAX_NEW
+    log(f"L served {len(prompts)} requests (lengths {LLAMA_LENGTHS}, "
+        f"max_new {LLAMA_MAX_NEW}) in {dt:.3f} s: "
+        f"{dt * 1e3 / len(prompts):.1f} ms/request, {toks / dt:.1f} "
+        f"tokens/s (prompt + generated), launches {counts}")
+    return counts, dict(ms_per_request=dt * 1e3 / len(prompts),
+                        tokens_per_s=toks / dt)
+
+
+# ---------------------------------------------------------------------------
+# Trace: where the card's time goes (run on its own, not by main())
+# ---------------------------------------------------------------------------
+
+OUR_KERNELS = ("topk_block_kernel", "topk_merge_kernel", "flash_kernel",
+               "decode_kernel")
+
+
+def _trace_summary(torch, tag, fn, n_steps):
+    """Profile ``fn()`` and print its wall time unprofiled and profiled,
+    the card's busy time (some kernel or copy running) against both, and
+    device time by kind and by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = ROOT / "build" / "trace" / f"{tag}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, float("-inf")
+    for s, t in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    by_name, by_kind = {}, {}
+    for e in events:
+        name = e["name"].removeprefix("void ")[:70]
+        kind = ("port kernels" if any(k in name for k in OUR_KERNELS) else
+                "GEMM" if any(k in name.lower() for k in
+                              ("gemm", "gemv", "xmma", "cutlass",
+                               "nvjet", "cublas")) else
+                "copies" if e["cat"] != "kernel" else "other kernels")
+        for d, key in ((by_name, name), (by_kind, kind)):
+            n, us = d.get(key, (0, 0.0))
+            d[key] = (n + 1, us + e["dur"])
+    log(f"T {tag}: wall {plain_ms:.3f} ms unprofiled, {wall_ms:.3f} ms "
+        f"profiled, over {n_steps} steps; card busy {busy / 1e3:.3f} ms "
+        f"({100 * busy / 1e3 / plain_ms:.1f}% of the unprofiled wall); "
+        f"{len(events)} device ops ({len(events) / n_steps:.1f} per step)")
+    for d, top in ((by_kind, 4), (by_name, 8)):
+        for key, (n, us) in sorted(d.items(), key=lambda kv: -kv[1][1])[:top]:
+            log(f"T {tag}:   {us / 1e3:9.3f} ms  {n:6d} x  {key}")
+
+
+def trace() -> int:
+    """Profile the two main paths once each (after a warm-up run): the
+    RAR microbatch path at microbatch 8 and 32 (hash embeddings) and
+    llama3-8b serving one 130-token request with ``max_new`` 8, whose
+    prefill and decode steps are also timed apart on the host clock::
+
+        python3 -c "import chip_smoke; chip_smoke.trace()"
+    """
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("trace needs a CUDA card")
+    from repro_torch.configs import llama3_8b, rar_system
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving.engine import ServingEngine, greedy_generate
+
+    _build.lib()
+    log(f"card: {card_line()}")
+    cuda = torch.device(DEV)
+    vocab, prompts, greqs, embs = workload()
+    tiers = (init_params(rar_system.WEAK, SEEDS["weak"], device=cuda),
+             init_params(rar_system.STRONG, SEEDS["strong"], device=cuda))
+    for mb in MICROBATCHES:
+        def run():
+            serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab)
+        run()
+        _trace_summary(torch, f"rar_mb{mb}", run, PASSES * POOL // mb)
+
+    cfg = getattr(llama3_8b, LLAMA_CONFIG)
+    params = init_params(cfg, SEEDS["llama"], device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (1, 130))).to(cuda)
+    engine = ServingEngine(cfg, params)
+
+    def serve():
+        engine.generate({"tokens": toks}, LLAMA_MAX_NEW)
+    serve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(cfg, params, {"tokens": toks}, 130 + LLAMA_MAX_NEW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    greedy_generate(cfg, params, {"tokens": toks}, LLAMA_MAX_NEW)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    step = ((t2 - t1) - (t1 - t0)) / (LLAMA_MAX_NEW - 1)
+    log(f"T llama3-8b: prefill of 130 tokens {(t1 - t0) * 1e3:.3f} ms; "
+        f"decode step {step * 1e3:.3f} ms (host clock, B=1)")
+    _trace_summary(torch, "llama3-8b", serve, LLAMA_MAX_NEW)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+
+
+MAIN_SHAPE = {"memory_topk": "C=4096 E=384 B=32 k=1",
+              "flash_attention": "llama3-8b B=1 Sq=300 H=32 KV=8 hd=128 "
+                                 "bfloat16 window=0 causal=True",
+              "decode_attention": "llama3-8b B=1 M=308 cache_len=301 H=32 "
+                                  "KV=8 hd=128 bfloat16 window=0"}
+SOURCES = {"memory_topk": ("src/repro_torch/kernels/csrc/memory_topk.cu",
+                           "src/repro/kernels/memory_topk.py:345"),
+           "flash_attention": (
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:85"),
+           "decode_attention": (
+               "src/repro_torch/kernels/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:75")}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = card_line()
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"build: {time.perf_counter() - t0:.1f} s for "
+        f"{len(_build.SOURCES)} CUDA sources -> {_build.library_path()}")
+
+    rows = phase_k(torch)
+    r_counts, _ = phase_r(torch, ops)
+    l_counts, _ = phase_l(torch, ops)
+
+    kernels = []
+    for name in ("memory_topk", "flash_attention", "decode_attention"):
+        main_row = next(r for r in rows[name] if r["key"] == MAIN_SHAPE[name])
+        src, replaces = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": r_counts.get(name, 0) + l_counts.get(name, 0),
+            "max_abs_err": max(r["err"] for r in rows[name]),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"], "shape": MAIN_SHAPE[name]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

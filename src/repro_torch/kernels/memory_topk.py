@@ -1,0 +1,198 @@
+"""Masked multi-query top-k over the padded guide store: the layout
+contract, the plain PyTorch version and the CUDA kernel's wrapper.
+
+Replaces ``src/repro/kernels/memory_topk.py::memory_topk_batch_padded_pallas``
+(and its B=1 wrapper ``memory_topk_padded_pallas``). The kernel is
+``csrc/memory_topk.cu``; its header says what bounds it on the H100 and how
+the two-pass design replaces the TPU's sequential (k, B) accumulator.
+
+Layout contract (identical to the JAX package, so row indices agree):
+
+* ``mem`` is (Cp, Ep) f32, rows padded to a multiple of the row tile (8)
+  and lanes to a multiple of 128; padding rows and lanes are zero.
+* ``mask`` is a (Cp, 1) int32 bit plane: bit 0 = valid, bit 1 = has_guide
+  (:data:`MASK_VALID`/:data:`MASK_GUIDE`). A query passes ``required``, the
+  bits a row must carry to take part; padding rows are 0, never valid.
+
+The result of every path is sorted by (sim descending, row ascending):
+:func:`_topk_select` is the definition of that order, mirrored from the
+JAX reference (k rounds of max, lowest row among ``>= best``, consume to
+-3.0). ``torch.topk``/``torch.sort`` are not used: their order for ties and
+for ±0.0 is not this one.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+DEFAULT_BLOCK_C = 1024
+
+MASK_VALID = 1
+MASK_GUIDE = 2
+
+_ROW_TILE = 8
+_ROW_SENTINEL = 2 ** 30
+
+#: launches of the CUDA kernel (incremented where it is launched, only)
+launches = 0
+
+
+def padded_rows(c: int, block_c: int = DEFAULT_BLOCK_C) -> int:
+    """Row count of the persistent kernel layout for a capacity-``c``
+    store: a multiple of the row tile, up to one full block."""
+    tile = min(block_c, _round_up(c, _ROW_TILE))
+    return _round_up(c, _round_up(tile, _ROW_TILE))
+
+
+def padded_lanes(e: int) -> int:
+    """Lane count of the persistent kernel layout for embed dim ``e``."""
+    return _round_up(e, 128)
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _pick_block(cp: int, block_c: int) -> int:
+    """Largest row-tile multiple <= block_c that divides the padded row
+    count. The CUDA kernel does not need it; it fixes the ``k <= block``
+    contract exactly where the JAX package fixes it."""
+    if cp % _ROW_TILE:
+        raise ValueError(f"padded row count {cp} is not a multiple of the "
+                         f"row tile {_ROW_TILE}; build the store with "
+                         f"padded_rows()/to_padded_layout()")
+    bc = max(min(block_c, cp) // _ROW_TILE * _ROW_TILE, _ROW_TILE)
+    while cp % bc:
+        bc -= _ROW_TILE
+    return bc
+
+
+def to_padded_layout(mem: torch.Tensor, mask: torch.Tensor,
+                     *, block_c: int = DEFAULT_BLOCK_C
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compact (C, E) store + (C,) mask -> padded (Cp, Ep) store + (Cp, 1)
+    int32 bit plane (a bool mask becomes the MASK_VALID bit)."""
+    C, E = mem.shape
+    Cp, Ep = padded_rows(C, block_c), padded_lanes(E)
+    memp = torch.zeros((Cp, Ep), dtype=mem.dtype, device=mem.device)
+    memp[:C, :E] = mem
+    bits = mask.to(torch.int32)
+    if mask.dtype == torch.bool:
+        bits = bits * MASK_VALID
+    maskp = torch.zeros((Cp, 1), dtype=torch.int32, device=mem.device)
+    maskp[:C, 0] = bits
+    return memp, maskp
+
+
+def check_k(k: int, cp: int, block_c: int = DEFAULT_BLOCK_C) -> None:
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    bc = _pick_block(cp, block_c)
+    if k > bc:
+        raise ValueError(f"k={k} exceeds the kernel block of {bc} rows; "
+                         f"raise block_c (or shrink k)")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the CPU path; the card's oracle)
+# ---------------------------------------------------------------------------
+
+
+def _topk_select(sims: torch.Tensor, rows: torch.Tensor, k: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the leading axis by (sim desc, row asc): k rounds of max,
+    lowest row among ``sims >= best``, consume to -3.0. IEEE compares, so
+    ±0.0 are equal and the row decides."""
+    out_s, out_r = [], []
+    never = torch.full_like(rows, _ROW_SENTINEL)
+    consumed = torch.tensor(-3.0, dtype=sims.dtype, device=sims.device)
+    for _ in range(k):
+        best = sims.max(dim=0).values
+        at_best = sims >= best[None]
+        best_row = torch.where(at_best, rows, never).min(dim=0).values
+        out_s.append(best)
+        out_r.append(best_row)
+        sims = torch.where(at_best & (rows == best_row[None]), consumed,
+                           sims)
+    return torch.stack(out_s), torch.stack(out_r)
+
+
+def _masked(sims: torch.Tensor, mask: torch.Tensor, required: int
+            ) -> torch.Tensor:
+    valid = (mask[:, 0] & required) == required
+    shape = (-1,) + (1,) * (sims.dim() - 1)
+    return torch.where(valid.view(shape), sims,
+                       torch.tensor(-2.0, device=sims.device))
+
+
+def memory_topk_padded_plain(mem, q, mask, k: int,
+                             required: int = MASK_VALID):
+    """Single query: q (E,) -> (sims (k,), idx (k,)). A matrix-vector
+    product, as the JAX reference computes it."""
+    Ep = mem.shape[1]
+    qp = torch.zeros((Ep,), dtype=torch.float32, device=mem.device)
+    qp[:q.shape[0]] = q.float()
+    sims = _masked(mem.float() @ qp, mask, required)
+    rows = torch.arange(sims.shape[0], dtype=torch.int32, device=mem.device)
+    return _topk_select(sims, rows, k)
+
+
+def memory_topk_batch_padded_plain(mem, qs, mask, k: int,
+                                   required: int = MASK_VALID):
+    """qs (B, E) -> (sims (B, k), idx (B, k)), each row sorted by
+    (sim desc, row asc)."""
+    B, E = qs.shape
+    Ep = mem.shape[1]
+    qp = torch.zeros((B, Ep), dtype=torch.float32, device=mem.device)
+    qp[:, :E] = qs.float()
+    sims = _masked(mem.float() @ qp.T, mask, required)          # (Cp, B)
+    rows = torch.arange(sims.shape[0], dtype=torch.int32,
+                        device=mem.device)[:, None].expand_as(sims)
+    s, r = _topk_select(sims, rows, k)                          # (k, B)
+    return s.T.contiguous(), r.T.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+_ROWS_PER_CTA = 128      # csrc/memory_topk.cu ROWS
+
+
+def memory_topk_batch_padded_cuda(mem, qs, mask, k: int,
+                                  required: int = MASK_VALID):
+    """Launch ``csrc/memory_topk.cu`` on CUDA tensors: mem (Cp, Ep) f32,
+    qs (B, E) f32, mask (Cp, 1) int32 -> (sims (B, k) f32, idx (B, k)
+    int32). Only the (B, E) query block is padded to Ep."""
+    global launches
+    if mem.device.type != "cuda" or qs.device != mem.device or \
+            mask.device != mem.device:
+        raise ValueError("memory_topk kernel takes CUDA tensors on one "
+                         "device")
+    if mem.dtype != torch.float32 or mask.dtype != torch.int32:
+        raise TypeError(f"memory_topk kernel takes f32 mem and int32 mask, "
+                        f"got {mem.dtype}/{mask.dtype}")
+    if not (mem.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("memory_topk kernel takes contiguous mem and mask")
+    Cp, Ep = mem.shape
+    B, E = qs.shape
+    if mask.shape != (Cp, 1) or E > Ep or Ep % 4:
+        raise ValueError(f"bad shapes mem {tuple(mem.shape)}, qs "
+                         f"{tuple(qs.shape)}, mask {tuple(mask.shape)}")
+    check_k(k, Cp)
+    dev = mem.device
+    qp = torch.zeros((B, Ep), dtype=torch.float32, device=dev)
+    qp[:, :E] = qs
+    nblk = -(-Cp // _ROWS_PER_CTA)
+    cand_s = torch.empty((B, nblk, k), dtype=torch.float32, device=dev)
+    cand_r = torch.empty((B, nblk, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((B, k), dtype=torch.int32, device=dev)
+    err = _build.lib().memory_topk_batch_padded(
+        mem.data_ptr(), qp.data_ptr(), mask.data_ptr(), Cp, Ep, B, k,
+        required, cand_s.data_ptr(), cand_r.data_ptr(), out_s.data_ptr(),
+        out_r.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "memory_topk_batch_padded")
+    launches += 1
+    return out_s, out_r

@@ -1,0 +1,79 @@
+"""Each CUDA kernel against its plain PyTorch version on the card, at the
+shapes of the RAR tiers, the embedder and llama3-8b. Needs a CUDA card
+and no JAX; skips without a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: top-k rows exact and sims within 1e-6; attention 2e-5 in f32
+and 2e-2 (about one bf16 ulp at |x| < 4) in bf16.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import memory_topk as tmt
+
+
+def _store(rng, C, E):
+    mem = rng.normal(size=(C, E)).astype(np.float32)
+    mem /= np.linalg.norm(mem, axis=1, keepdims=True)
+    mem[C // 2] = mem[C - 1] = mem[C // 3]
+    mem[1], mem[2] = 0.0, -0.0
+    bits = ((rng.random(C) < 0.6) * tmt.MASK_VALID
+            + (rng.random(C) < 0.5) * tmt.MASK_GUIDE).astype(np.int32)
+    return mem, bits
+
+
+def _queries(rng, B, E):
+    qs = rng.normal(size=(B, E)).astype(np.float32)
+    return qs / np.linalg.norm(qs, axis=1, keepdims=True)
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,B,k", [(4096, 32, 1), (4096, 8, 8),
+                                   (136, 5, 16)])
+def test_cuda_topk_matches_plain(rng, cuda, C, B, k):
+    mem, bits = _store(rng, C, 384)
+    memp, maskp = tmt.to_padded_layout(torch.from_numpy(mem),
+                                       torch.from_numpy(bits))
+    qs = torch.from_numpy(_queries(rng, B, 384))
+    ps, pi = tmt.memory_topk_batch_padded_plain(memp, qs, maskp, k)
+    cs, ci = tmt.memory_topk_batch_padded_cuda(memp.to(cuda), qs.to(cuda),
+                                               maskp.to(cuda), k)
+    np.testing.assert_array_equal(ci.cpu().numpy(), pi.numpy())
+    np.testing.assert_allclose(cs.cpu().numpy(), ps.numpy(), atol=1e-6,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_attention_matches_plain(rng, cuda, dtype, tol):
+    q = torch.from_numpy(rng.normal(size=(2, 45, 8, 128)).astype(
+        np.float32)).to(cuda, dtype)
+    k = torch.from_numpy(rng.normal(size=(2, 45, 2, 128)).astype(
+        np.float32)).to(cuda, dtype)
+    for window in (0, 16):
+        want = fa.flash_attention_plain(q, k, k, window=window).float()
+        got = fa.flash_attention_cuda(q, k, k, window=window).float()
+        assert (got - want).abs().max().item() <= tol
+        q0 = q[:, 0].contiguous()
+        want = da.decode_attention_plain(q0, k, k, 30,
+                                         window=window).float()
+        got = da.decode_attention_cuda(q0, k, k, 30,
+                                       window=window).float()
+        assert (got - want).abs().max().item() <= tol
