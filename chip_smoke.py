@@ -5,15 +5,22 @@
 
 Phases, each of which fails the run on any error:
 
-* build: compiles the three CUDA kernels from ``src/repro_torch/kernels/
+* build: compiles the five CUDA kernels from ``src/repro_torch/kernels/
   csrc`` with ``nvcc`` (one process per source, in parallel);
 * K: every kernel against its plain PyTorch version on the card at the
-  main path's shapes (the RAR tiers, the embedder, llama3-8b), with its
-  time, the plain version's, a PyTorch library call's and the bound;
+  main path's shapes (the RAR tiers, the embedder, llama3-8b, the guide
+  store at 4096 and 65536 rows, the IVF centroid planes), with its time,
+  the plain version's, a PyTorch library call's and the bound;
 * R: ``MicrobatchRAR`` serving the ``rar_throughput`` workload (pool 64,
   2 passes, microbatch 8 and 32) on the card and on the CPU in the same
   process, with identical Outcome streams, FM calls and stores required
   (R1: precomputed hash embeddings; R2: the port's embedder on the card);
+* I: the IVF retrieval plane. I1 serves R1's workload with 64 clusters
+  probed in full (it must give R1's Outcome streams: 192 strong calls);
+  I2 serves it against a 65536 x 384 store of clustered rows with 1024
+  clusters and 4 probes, and measures recall@4 and the IVF read against
+  the exact scan; I3 holds ``memory.query``/``query_batch`` (the top-1
+  kernel) on that store. Card and CPU must agree in every step;
 * L: ``ServingEngine.generate_bucketed`` at the full width of llama3-8b
   (bf16, random weights from a seed) serving 8 mixed-length requests.
 
@@ -42,13 +49,15 @@ F32_FLOPS = 67e12                # f32 outside the tensor cores
 BF16_FLOPS = 989e12              # bf16 dense tensor-core peak
 TOPK_TOL = 1e-6
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-SEEDS = {"weak": 0, "strong": 1, "embedder": 2, "llama": 3}
+SEEDS = {"weak": 0, "strong": 1, "embedder": 2, "llama": 3, "store": 4}
 POOL, PASSES, MICROBATCHES, SEQ_LEN = 64, 2, (8, 32), 16
 JAX_STRONG_CALLS = 192           # BENCH_rar_throughput.json, per 128
 LLAMA_LENGTHS = (17, 45, 64, 96, 130, 180, 240, 300)
 LLAMA_MAX_NEW = 8
 DEV = "cuda"
 LLAMA_CONFIG = "FULL"            # llama3_8b.FULL: all 32 layers
+IVF_EXACT = (64, 64)             # I1: clusters, probes (all: exact)
+IVF_STORE = (65536, 1024, 4)     # I2: capacity, clusters, probes
 
 
 def log(*a):
@@ -95,7 +104,9 @@ def phase_k(torch):
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import memory_ivf as ivf
     from repro_torch.kernels import memory_topk as mt
+    from repro_torch.kernels import ops
 
     dev = torch.device(DEV)
     rng = np.random.default_rng(0)
@@ -148,6 +159,113 @@ def phase_k(torch):
                            memp, qs, maskp, k)),
                        time_ms(torch, lambda: mt.memory_topk_batch_padded_plain(
                            memp, qs, maskp, k)),
+                       time_ms(torch, lib), b)
+
+    # -- top-1 store read: C in {4096, 65536} x 384, both views ----------
+    for C in (4096, 65536):
+        mem = rng.normal(size=(C, 384)).astype(np.float32)
+        mem /= np.linalg.norm(mem, axis=1, keepdims=True)
+        mem[C // 2] = mem[C - 1] = mem[C // 3]          # exact ties
+        mem[1], mem[2] = 0.0, -0.0                      # sims of +-0
+        bits = ((rng.random(C) < 0.7) * mt.MASK_VALID +
+                (rng.random(C) < 0.5) * mt.MASK_GUIDE).astype(np.int32)
+        memp, maskp = mt.to_padded_layout(torch.from_numpy(mem),
+                                          torch.from_numpy(bits))
+        memp, maskp = memp.to(dev), maskp.to(dev)
+        for B in (1, 8, 32):
+            qs = rng.normal(size=(B, 384)).astype(np.float32)
+            qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+            qs[0] = mem[C // 3]
+            qs = torch.from_numpy(qs).to(dev)
+            for req in (mt.MASK_VALID, mt.MASK_VALID | mt.MASK_GUIDE):
+                cs, ci = mt.memory_top1_batch_padded_cuda(memp, qs, maskp,
+                                                          req)
+                ps, pi = mt.memory_top1_batch_padded_plain(memp, qs, maskp,
+                                                           req)
+                torch.cuda.synchronize()
+                if not torch.equal(ci, pi):
+                    raise AssertionError(f"top-1 rows differ at C={C} "
+                                         f"B={B} required={req}")
+                err = (cs - ps).abs().max().item()
+                if err > TOPK_TOL:
+                    raise AssertionError(f"top-1 sims off by {err}")
+                view = (maskp[:, 0] & req) == req
+
+                def lib():
+                    return torch.argmax(torch.where(view[None], qs @ memp.T,
+                                                    -2.0), dim=1)
+                b = bound(memp.numel() * 4 + maskp.numel() * 4 +
+                          qs.numel() * 4 + B * 8, 2 * C * 384 * B, F32_FLOPS)
+                record("memory_top1", f"C={C} E=384 B={B} required={req}",
+                       err,
+                       time_ms(torch, lambda: mt.memory_top1_batch_padded_cuda(
+                           memp, qs, maskp, req)),
+                       time_ms(torch, lambda: mt.memory_top1_batch_padded_plain(
+                           memp, qs, maskp, req)),
+                       time_ms(torch, lib), b)
+
+    # -- the compact-layout top-1 wrappers: layout copy, then the kernel --
+    C, B = 4096, 8
+    mem = torch.from_numpy(rng.normal(size=(C, 384)).astype(np.float32))
+    mem /= mem.norm(dim=1, keepdim=True)
+    valid = torch.from_numpy(rng.random(C) < 0.7)
+    qs = mem[:B].clone()
+    mem, valid, qs = mem.to(dev), valid.to(dev), qs.to(dev)
+    cs, ci = ops.memory_top1_batch(mem, qs, valid)
+    ps, pi = mt.memory_top1_batch_plain(mem, qs, valid)
+    torch.cuda.synchronize()
+    if not torch.equal(ci, pi):
+        raise AssertionError("compact top-1 rows differ")
+    err = (cs - ps).abs().max().item()
+    record("memory_top1_compact", f"C={C} E=384 B={B}", err,
+           time_ms(torch, lambda: ops.memory_top1_batch(mem, qs, valid)),
+           time_ms(torch, lambda: mt.memory_top1_batch_plain(mem, qs,
+                                                             valid)),
+           time_ms(torch, lambda: torch.argmax(torch.where(
+               valid[None], qs @ mem.T, -2.0), dim=1)),
+           bound(mem.numel() * 4 + C + qs.numel() * 4 + B * 8,
+                 2 * C * 384 * B, F32_FLOPS))
+
+    # -- IVF route: centroid planes of 64 and 1024 clusters ---------------
+    for P in (64, 1024):
+        cent = rng.normal(size=(P, 384)).astype(np.float32)
+        cent /= np.linalg.norm(cent, axis=1, keepdims=True)
+        cent[P // 2] = cent[0]                          # tied centroids
+        seeded = (rng.random(P) < 0.9).astype(np.int32) * mt.MASK_VALID
+        centp, cmaskp = mt.to_padded_layout(torch.from_numpy(cent),
+                                            torch.from_numpy(seeded))
+        centp, cmaskp = centp.to(dev), cmaskp.to(dev)
+        live = cmaskp[:, 0] == mt.MASK_VALID
+        for B in (1, 8, 32):
+            qs = rng.normal(size=(B, 384)).astype(np.float32)
+            qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+            qs[0] = cent[0]
+            qs = torch.from_numpy(qs).to(dev)
+            for n_probe in (4, 64):
+                cs, ci = ivf.ivf_route_batch_padded_cuda(centp, qs, cmaskp,
+                                                         n_probe)
+                ps, pi = ivf.ivf_route_batch_padded_plain(centp, qs, cmaskp,
+                                                          n_probe)
+                torch.cuda.synchronize()
+                if not torch.equal(ci, pi):
+                    raise AssertionError(f"route rows differ at P={P} "
+                                         f"B={B} n_probe={n_probe}")
+                err = (cs - ps).abs().max().item()
+                if err > TOPK_TOL:
+                    raise AssertionError(f"route scores off by {err}")
+
+                def lib():
+                    s = torch.where(live[:, None], centp @ qs.T, -2.0)
+                    return torch.topk(s.T, n_probe, dim=1)
+                b = bound(centp.numel() * 4 + cmaskp.numel() * 4 +
+                          qs.numel() * 4 + B * n_probe * 8,
+                          2 * P * 384 * B, F32_FLOPS)
+                record("ivf_route", f"P={P} E=384 B={B} n_probe={n_probe}",
+                       err,
+                       time_ms(torch, lambda: ivf.ivf_route_batch_padded_cuda(
+                           centp, qs, cmaskp, n_probe)),
+                       time_ms(torch, lambda: ivf.ivf_route_batch_padded_plain(
+                           centp, qs, cmaskp, n_probe)),
                        time_ms(torch, lib), b)
 
     # -- attention at the tiers', the embedder's and llama3-8b's shapes ---
@@ -277,7 +395,12 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab):
+def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab,
+              cfg=None, memory=None):
+    """Serve the workload through ``MicrobatchRAR`` on ``device`` (PASSES
+    passes at microbatch ``mb``). Returns the controller, the Outcomes, the
+    wall time, the embeddings computed (R2) and every top-1 sim the serve
+    plane read."""
     import numpy as np
 
     from repro_torch.configs import rar_system
@@ -300,9 +423,19 @@ def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab):
         return out
 
     ctrl = MicrobatchRAR(weak, strong, None, lambda e, k: False,
-                         rar_system.make_rar_config(), device=device,
+                         cfg or rar_system.make_rar_config(), device=device,
+                         memory=memory,
                          embed_batch_fn=(None if emb_params is None
                                          else embed_batch))
+    sims = []
+    lookup = ctrl._lookup_batch
+
+    def recorded_lookup(embs, guides_only=False):
+        q = lookup(embs, guides_only=guides_only)
+        if not guides_only:
+            sims.append(np.asarray(q.sim)[:, 0])
+        return q
+    ctrl._lookup_batch = recorded_lookup
     outs = []
     t0 = time.perf_counter()
     for _ in range(PASSES):
@@ -316,7 +449,7 @@ def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab):
         import torch
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return ctrl, outs, dt, seen
+    return ctrl, outs, dt, seen, np.concatenate(sims)
 
 
 def same_store(a, b, emb_atol=0.0):
@@ -376,13 +509,13 @@ def phase_r(torch, ops):
     for phase, emb_params in (("R1", None), ("R2", emb_cuda)):
         for mb in MICROBATCHES:
             ops.reset_launches()
-            c_ctrl, c_outs, c_dt, c_seen = serve_rar(
+            c_ctrl, c_outs, c_dt, c_seen, _ = serve_rar(
                 cuda, tiers, emb_params, mb, prompts, greqs, embs, vocab)
             got = ops.launch_counts()
             for k, v in got.items():
                 counts[k] = counts.get(k, 0) + v
             log(f"{phase} mb={mb} launches on the card: {got}")
-            h_ctrl, h_outs, h_dt, h_seen = serve_rar(
+            h_ctrl, h_outs, h_dt, h_seen, _ = serve_rar(
                 cpu, tiers, None if emb_params is None else
                 to_device(emb_params, cpu), mb, prompts, greqs, embs, vocab)
             if [dataclasses.astuple(o) for o in c_outs] != \
@@ -422,11 +555,203 @@ def phase_r(torch, ops):
                          f"{cos.min().item():.8f}; closest pairwise sim to "
                          f"the 0.6 threshold is {margin:.4f} away")
             log(line)
-            results[f"{phase}_mb{mb}"] = dict(strong_calls=strong,
-                                              req_per_s=n / c_dt)
+            results[f"{phase}_mb{mb}"] = dict(
+                strong_calls=strong, req_per_s=n / c_dt,
+                outcomes=[dataclasses.astuple(o) for o in c_outs])
     for k in ("memory_topk", "flash_attention", "decode_attention"):
         if counts.get(k, 0) == 0:
             raise AssertionError(f"Phase R never launched {k}")
+    return counts, results, tiers
+
+
+# ---------------------------------------------------------------------------
+# Phase I: the IVF retrieval plane, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def check_same_serving(tag, c, h):
+    """Card and CPU runs of one serving step: identical Outcome streams,
+    engine stats, stores and IVF stats. ``c``/``h`` are serve_rar's
+    returns."""
+    if [dataclasses.astuple(o) for o in c[1]] != \
+            [dataclasses.astuple(o) for o in h[1]]:
+        raise AssertionError(f"{tag}: Outcome streams differ card vs CPU")
+    for tier in ("weak", "strong"):
+        a = getattr(c[0], tier).engine.stats()
+        b = getattr(h[0], tier).engine.stats()
+        if a != b:
+            raise AssertionError(f"{tag} {tier} engine stats differ: {a} vs "
+                                 f"{b}")
+    same_store(c[0].memory.store, h[0].memory.store)
+    if c[0].memory.stats() != h[0].memory.stats():
+        raise AssertionError(f"{tag}: IVF stats differ card vs CPU: "
+                             f"{c[0].memory.stats()} vs "
+                             f"{h[0].memory.stats()}")
+
+
+def log_launches(ops, seen, tag, steps):
+    """Log the launches since the counts in ``seen`` (updated here), in
+    all and per ``process_batch`` step."""
+    now = ops.launch_counts()
+    new = {k: v - seen.get(k, 0) for k, v in now.items() if v > seen.get(k, 0)}
+    seen.update(now)
+    log(f"{tag} launches on the card: {new}; per step "
+        f"{ {k: v / steps for k, v in new.items()} }")
+
+
+def threshold_margin(sims) -> float:
+    """Smallest distance of a served sim (not a -2.0 sentinel) to the 0.6
+    routing threshold."""
+    import numpy as np
+    live = sims[sims > -2.0]
+    return float(np.abs(live - 0.6).min()) if live.size else float("inf")
+
+
+def near(rng, protos, n):
+    """``benchmarks/memory_bench.py``'s skill rows: a prototype plus 0.05
+    noise per lane, renormalized."""
+    import numpy as np
+    rows = protos[rng.integers(0, len(protos), n)] + \
+        0.05 * rng.normal(size=(n, protos.shape[1])).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    return rows.astype(np.float32)
+
+
+def phase_i(torch, ops, tiers, r_results):
+    import numpy as np
+
+    from repro_torch.configs import rar_system
+    from repro_torch.core import memory as mem
+    from repro_torch.kernels.memory_topk import MASK_GUIDE, MASK_VALID
+
+    cuda, cpu = torch.device(DEV), torch.device("cpu")
+    vocab, prompts, greqs, embs = workload()
+    n = PASSES * POOL
+    results = {}
+    ops.reset_launches()
+    seen = {}
+
+    # I1: all clusters probed reproduce the exact scan, so R1's stream
+    clusters, probes = IVF_EXACT
+    cfg = rar_system.make_rar_config(retrieval_clusters=clusters,
+                                     retrieval_probes=probes)
+    for mb in MICROBATCHES:
+        c = serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab,
+                      cfg=cfg)
+        h = serve_rar(cpu, tiers, None, mb, prompts, greqs, embs, vocab,
+                      cfg=cfg)
+        check_same_serving(f"I1 mb={mb}", c, h)
+        log_launches(ops, seen, f"I1 mb={mb}", n // mb)
+        if [dataclasses.astuple(o) for o in c[1]] != \
+                r_results[f"R1_mb{mb}"]["outcomes"]:
+            raise AssertionError(f"I1 mb={mb}: Outcome stream differs from "
+                                 f"R1's exact scan")
+        strong = sum(o.strong_calls for o in c[1])
+        if strong != JAX_STRONG_CALLS:
+            raise AssertionError(f"I1 mb={mb}: {strong} strong calls")
+        log(f"I1 mb={mb}: IVF {clusters} clusters / {probes} probes on the "
+            f"4096 store: Outcome streams == R1 and card == CPU; strong "
+            f"calls {strong} per {n} requests (JAX record "
+            f"{JAX_STRONG_CALLS}); IVF stats {c[0].memory.stats()}; "
+            f"closest served sim to the 0.6 threshold "
+            f"{threshold_margin(c[4]):.6f} away; card {n / c[2]:.1f} req/s,"
+            f" CPU {n / h[2]:.1f} req/s")
+        results[f"I1_mb{mb}"] = dict(strong_calls=strong,
+                                     req_per_s=n / c[2])
+
+    # I2: the size the plane exists for, a full store of clustered rows
+    C, clusters, probes = IVF_STORE
+    rng = np.random.default_rng(SEEDS["store"])
+    protos = rng.normal(size=(clusters, 384)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
+    rows = near(rng, protos, C)
+    # half the rows carry a guide (an empty block), so the guides-only
+    # view of I3 is not empty; no workload query comes near these rows
+    bits = MASK_VALID + MASK_GUIDE * (rng.random(C) < 0.5)
+    base = rar_system.make_rar_config()
+    mcfg = mem.MemoryConfig(capacity=C, embed_dim=384,
+                            guide_len=base.memory.guide_len)
+    cfg = dataclasses.replace(base, memory=mcfg, retrieval_clusters=clusters,
+                              retrieval_probes=probes)
+
+    def full_store(device):
+        st = mem.init_memory(mcfg, device=device)
+        st.emb[:C, :384] = torch.from_numpy(rows).to(device)
+        st.mask[:C, 0] = torch.from_numpy(bits.astype(np.int32)).to(device)
+        st.ptr = C
+        return st
+
+    log(f"I2 store: {C} x 384 clustered unit rows ({clusters} prototypes, "
+        f"noise 0.05, seed {SEEDS['store']}, {int((bits > 1).sum())} with "
+        f"a guide); IVF {clusters} clusters, {probes} probes")
+    served = {}
+    for mb in MICROBATCHES:
+        c = serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab,
+                      cfg=cfg, memory=full_store(cuda))
+        h = serve_rar(cpu, tiers, None, mb, prompts, greqs, embs, vocab,
+                      cfg=cfg, memory=full_store(cpu))
+        check_same_serving(f"I2 mb={mb}", c, h)
+        log_launches(ops, seen, f"I2 mb={mb}", n // mb)
+        strong = sum(o.strong_calls for o in c[1])
+        log(f"I2 mb={mb}: card == CPU; strong calls {strong} per {n} "
+            f"requests; bucket {c[0].memory.bucket_cap}, "
+            f"{probes * c[0].memory.bucket_cap} candidates a query; IVF "
+            f"stats {c[0].memory.stats()}; closest served sim to the 0.6 "
+            f"threshold {threshold_margin(c[4]):.6f} away; card "
+            f"{n / c[2]:.1f} req/s, CPU {n / h[2]:.1f} req/s")
+        results[f"I2_mb{mb}"] = dict(strong_calls=strong,
+                                     req_per_s=n / c[2])
+        served = dict(card=c[0].memory, cpu=h[0].memory)
+
+    # I3: the top-1 reads on that store, card against CPU
+    qs = near(rng, protos, 32)
+    qs[0] = rows[C - 1]           # a filled row the workload left in place
+    qs[1] = embs[0]               # an entry the workload wrote
+    for guides_only in (False, True):
+        a = mem.query_batch(served["card"].store, qs,
+                            guides_only=guides_only).device_get()
+        b = mem.query_batch(served["cpu"].store, qs,
+                            guides_only=guides_only).device_get()
+        pairs = [(a, b)] + [
+            (mem.query(served["card"].store, q,
+                       guides_only=guides_only).device_get(),
+             mem.query(served["cpu"].store, q,
+                       guides_only=guides_only).device_get())
+            for q in qs[:4]]
+        for x, y in pairs:
+            if not np.array_equal(x.meta, y.meta):
+                raise AssertionError(f"I3 guides_only={guides_only}: rows "
+                                     f"or meta differ card vs CPU")
+            err = float(np.abs(x.sim - y.sim).max())
+            if err > TOPK_TOL:
+                raise AssertionError(f"I3 sims off by {err}")
+        log(f"I3 guides_only={guides_only}: query_batch (B=32) and 4 "
+            f"single queries on the {C}-row store: rows and meta card == "
+            f"CPU; best sims {np.round(a.sim[:4], 6).tolist()}")
+    log_launches(ops, seen, "I3", 1)
+    counts = ops.launch_counts()
+    log(f"I launches on the card: {counts}")
+    for k in ("ivf_route", "memory_top1"):
+        if counts[k] == 0:
+            raise AssertionError(f"Phase I never launched {k}")
+
+    # recall and times of the IVF read against the exact scan (after the
+    # counts: these are measurements, not the main path)
+    ivf = served["card"]
+    qr = near(rng, protos, 256)
+    got = ivf.query_topk_batch(qr, 4).device_get().index
+    want = ivf.exact_query_topk_batch(qr, 4).device_get().index
+    recall = float(np.mean([len(set(got[i]) & set(want[i])) / 4
+                            for i in range(len(qr))]))
+    q32 = torch.from_numpy(qr[:32]).to(cuda)
+    ivf_ms = time_ms(torch, lambda: ivf.query_topk_batch(q32, 4))
+    exact_ms = time_ms(torch, lambda: ivf.exact_query_topk_batch(q32, 4))
+    log(f"I2 recall@4 of the IVF read against the exact scan over "
+        f"{len(qr)} queries on the card: {recall:.4f}; query_topk_batch "
+        f"B=32 k=4 (CUDA events): IVF {ivf_ms:.4f} ms, exact {exact_ms:.4f}"
+        f" ms ({exact_ms / ivf_ms:.2f}x)")
+    results["I2_ivf"] = dict(recall_at_4=recall, ivf_ms=ivf_ms,
+                             exact_ms=exact_ms)
     return counts, results
 
 
@@ -483,8 +808,8 @@ def phase_l(torch, ops):
 # Trace: where the card's time goes (run on its own, not by main())
 # ---------------------------------------------------------------------------
 
-OUR_KERNELS = ("topk_block_kernel", "topk_merge_kernel", "flash_kernel",
-               "decode_kernel")
+OUR_KERNELS = ("topk_block_kernel", "topk_merge_kernel", "top1_kernel",
+               "route_kernel", "flash_kernel", "decode_kernel")
 
 
 def _trace_summary(torch, tag, fn, n_steps):
@@ -591,12 +916,18 @@ def trace() -> int:
 
 
 MAIN_SHAPE = {"memory_topk": "C=4096 E=384 B=32 k=1",
+              "memory_top1": "C=65536 E=384 B=32 required=1",
+              "ivf_route": "P=1024 E=384 B=8 n_probe=4",
               "flash_attention": "llama3-8b B=1 Sq=300 H=32 KV=8 hd=128 "
                                  "bfloat16 window=0 causal=True",
               "decode_attention": "llama3-8b B=1 M=308 cache_len=301 H=32 "
                                   "KV=8 hd=128 bfloat16 window=0"}
 SOURCES = {"memory_topk": ("src/repro_torch/kernels/csrc/memory_topk.cu",
                            "src/repro/kernels/memory_topk.py:345"),
+           "memory_top1": ("src/repro_torch/kernels/csrc/memory_top1.cu",
+                           "src/repro/kernels/memory_topk.py:301"),
+           "ivf_route": ("src/repro_torch/kernels/csrc/ivf_route.cu",
+                         "src/repro/kernels/memory_ivf.py:74"),
            "flash_attention": (
                "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention.py:85"),
@@ -622,17 +953,19 @@ def main() -> int:
         f"{len(_build.SOURCES)} CUDA sources -> {_build.library_path()}")
 
     rows = phase_k(torch)
-    r_counts, _ = phase_r(torch, ops)
+    r_counts, r_results, tiers = phase_r(torch, ops)
+    i_counts, _ = phase_i(torch, ops, tiers, r_results)
     l_counts, _ = phase_l(torch, ops)
 
     kernels = []
-    for name in ("memory_topk", "flash_attention", "decode_attention"):
+    for name in SOURCES:
         main_row = next(r for r in rows[name] if r["key"] == MAIN_SHAPE[name])
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": r_counts.get(name, 0) + l_counts.get(name, 0),
+            "launches": sum(c.get(name, 0)
+                            for c in (r_counts, i_counts, l_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

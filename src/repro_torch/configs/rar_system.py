@@ -88,10 +88,9 @@ def make_rar_config(*, sim_threshold: float = 0.6,
     deferred to barriers, with optional near-duplicate coalescing before
     each drain — :mod:`repro_torch.core.shadow`); the flush cadence
     defaults to every batch and coalescing defaults to off.
-    ``retrieval_clusters``/``retrieval_probes`` name the two-level (IVF)
-    retrieval plane, which the port does not have yet: the controller
-    refuses clusters > 0, and 0 (the default) keeps the exact store
-    scan."""
+    ``retrieval_clusters``/``retrieval_probes`` configure the two-level
+    (IVF) retrieval plane (:mod:`repro_torch.core.memory_ivf`); 0 clusters
+    (the default) keeps the exact store scan."""
     if guide_sim_threshold is None:
         guide_sim_threshold = sim_threshold
     if max_guides is None:

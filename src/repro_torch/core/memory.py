@@ -8,6 +8,11 @@ The store keeps the JAX package's persistent kernel layout: ``emb`` is
 hands the buffers to the top-k kernel as they are. Logical ring slots are
 rows [0, C); padding rows carry mask 0.
 
+Reads and writes take a :class:`MemoryState` or a wrapped store with the
+same method API (:class:`repro_torch.core.memory_ivf.IVFMemory`): the
+module functions dispatch as the JAX package's do, a ``MemoryState`` to
+the function here, a wrapped store to its method.
+
 Differences from the JAX package, by design:
 
 * writes (:func:`add`, :func:`add_batch`, :func:`mark_soft`, :func:`touch`,
@@ -17,8 +22,8 @@ Differences from the JAX package, by design:
 * a result's :meth:`~_MetaViews.device_get` moves ``sim`` and ``meta`` to
   the host in one ``.cpu()`` (the sims ride as int32 bit patterns).
 
-Not ported yet: the top-1 reads ``query``/``query_batch`` and the
-write-ahead journal (``MemoryJournal``, ``open_journaled_stream``).
+Not ported yet: the write-ahead journal (``MemoryJournal``,
+``open_journaled_stream``).
 """
 from __future__ import annotations
 
@@ -96,11 +101,13 @@ def _on(state: MemoryState, x, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def add_batch(state: MemoryState, embs, guides, has_guide, hard, now
-              ) -> MemoryState:
+def add_batch(state, embs, guides, has_guide, hard, now):
     """Insert K entries at consecutive ring slots (FIFO eviction): embs
     (K, E); guides (K, G); has_guide/hard (K,) bool; now (K,) int32. One
-    scatter per field, in place."""
+    scatter per field, in place. Returns the store."""
+    if not isinstance(state, MemoryState):
+        state.add_batch(embs, guides, has_guide, hard, now)
+        return state
     embs = _on(state, embs, torch.float32)
     K, C = embs.shape[0], state.capacity
     if K > C:
@@ -118,22 +125,31 @@ def add_batch(state: MemoryState, embs, guides, has_guide, hard, now
     return state
 
 
-def add(state: MemoryState, emb, guide, has_guide, hard, now) -> MemoryState:
+def add(state, emb, guide, has_guide, hard, now):
     """Insert one entry at the ring pointer."""
+    if not isinstance(state, MemoryState):
+        state.add(emb, guide, has_guide, hard, now)
+        return state
     return add_batch(state, np.asarray(emb)[None], np.asarray(guide)[None],
                      np.asarray(has_guide).reshape(1),
                      np.asarray(hard).reshape(1), np.asarray(now).reshape(1))
 
 
-def mark_soft(state: MemoryState, index) -> MemoryState:
+def mark_soft(state, index):
     """Clear hard flag(s) after a successful re-probe; ``index`` scalar or
     (K,)."""
+    if not isinstance(state, MemoryState):
+        state.mark_soft(index)
+        return state
     state.hard[_on(state, index, torch.int64)] = False
     return state
 
 
-def touch(state: MemoryState, index, now) -> MemoryState:
+def touch(state, index, now):
     """Refresh entry timestamp(s): the re-probe cool-down restarts."""
+    if not isinstance(state, MemoryState):
+        state.touch(index, now)
+        return state
     state.added_at[_on(state, index, torch.int64)] = _on(state, now,
                                                          torch.int32)
     return state
@@ -203,7 +219,8 @@ class _MetaViews:
             return self
         bits = self.sim.contiguous().view(torch.int32)[..., None]
         host = torch.cat([bits, self.meta], dim=-1).cpu().numpy()
-        sim = np.ascontiguousarray(host[..., 0]).view(np.float32)
+        sim = np.ascontiguousarray(host[..., 0]).view(np.float32).reshape(
+            host.shape[:-1])
         return type(self)(sim, np.ascontiguousarray(host[..., 1:]))
 
 
@@ -246,22 +263,48 @@ def _check_k(k: int, capacity: int) -> None:
                          f"block {DEFAULT_BLOCK_C})")
 
 
-def query_topk(state: MemoryState, emb, k: int,
-               guides_only: bool = False) -> TopKResult:
+def query(state, emb, guides_only: bool = False) -> QueryResult:
+    """Top-1 cosine search for one query (the top-1 kernel on the card):
+    the best row and its metadata; an empty view gives sim -2.0 at row 0.
+    ``guides_only`` restricts the view to guide entries."""
+    if not isinstance(state, MemoryState):
+        return state.query(emb, guides_only=guides_only)
+    sim, idx = kops.memory_top1_padded(
+        state.emb, _on(state, emb, torch.float32), state.mask,
+        required_bits(guides_only))
+    return QueryResult(sim=sim, meta=pack_meta(state, idx))
+
+
+def query_batch(state, embs, guides_only: bool = False) -> QueryResult:
+    """Top-1 search for a microbatch in one store pass: embs (B, E) ->
+    QueryResult with a leading B axis."""
+    if not isinstance(state, MemoryState):
+        return state.query_batch(embs, guides_only=guides_only)
+    sims, idx = kops.memory_top1_batch_padded(
+        state.emb, _on(state, embs, torch.float32), state.mask,
+        required_bits(guides_only))
+    return QueryResult(sim=sims, meta=pack_meta(state, idx))
+
+
+def query_topk(state, emb, k: int, guides_only: bool = False) -> TopKResult:
     """Top-k cosine search for one query, sorted by (sim desc, row asc);
     slots past the view's population carry the -2.0 sentinel."""
     _check_k(k, state.capacity)
+    if not isinstance(state, MemoryState):
+        return state.query_topk(emb, k, guides_only=guides_only)
     sims, idx = kops.memory_topk_padded(
         state.emb, _on(state, emb, torch.float32), state.mask, k,
         required_bits(guides_only))
     return TopKResult(sim=sims, meta=pack_meta(state, idx))
 
 
-def query_topk_batch(state: MemoryState, embs, k: int,
+def query_topk_batch(state, embs, k: int,
                      guides_only: bool = False) -> TopKResult:
     """Top-k search for a microbatch in one store pass: embs (B, E) ->
     TopKResult with (B, k) leading axes."""
     _check_k(k, state.capacity)
+    if not isinstance(state, MemoryState):
+        return state.query_topk_batch(embs, k, guides_only=guides_only)
     sims, idx = kops.memory_topk_batch_padded(
         state.emb, _on(state, embs, torch.float32), state.mask, k,
         required_bits(guides_only))
@@ -328,10 +371,13 @@ class CommitBuffer:
             return state, 0
         return self.apply_ops(state, *self.take_ops())
 
-    def apply_ops(self, state: MemoryState, records, soft_clears, touches):
+    def apply_ops(self, state, records, soft_clears, touches):
         """Apply one epoch's ops to ``state`` (in place). Inserts go in
         capacity-sized chunks, so an epoch larger than the ring degrades to
-        the sequential FIFO result."""
+        the sequential FIFO result, each split into power-of-two runs
+        (13 -> 8 + 4 + 1) as the JAX package splits them: the store's bytes
+        do not depend on the split, but an IVF index assigns each insert
+        against its run's start centroids."""
         records = sorted(records, key=lambda r: r[0])
         C = state.capacity
         base_ptr = state.ptr
@@ -342,9 +388,9 @@ class CommitBuffer:
             covered = end_ptr - snap
             return covered >= C or (idx - snap) % C < covered
 
-        for start in range(0, len(records), C):
-            chunk = records[start:start + C]
-            add_batch(state,
+        for chunk in (run for start in range(0, len(records), C)
+                      for run in _po2_runs(records[start:start + C])):
+            state = add_batch(state,
                       np.stack([np.asarray(r[1]) for r in chunk]),
                       np.stack([np.asarray(r[2], np.int32) for r in chunk]),
                       np.asarray([r[3] for r in chunk], bool),
@@ -353,17 +399,26 @@ class CommitBuffer:
         softs = sorted({idx for _, idx, snap in soft_clears
                         if not evicted(idx, snap)})
         if softs:
-            mark_soft(state, np.asarray(softs, np.int64))
+            state = mark_soft(state, np.asarray(softs, np.int64))
         by_idx = {idx: now for now, idx, snap in
                   sorted(touches, key=lambda t: t[:2])
                   if not evicted(idx, snap)}
         if by_idx:
             order = sorted(by_idx)
-            touch(state, np.asarray(order, np.int64),
+            state = touch(state, np.asarray(order, np.int64),
                   np.asarray([by_idx[i] for i in order], np.int32))
         self.epoch += 1
         self.entries_applied += len(records)
         return state, len(records)
+
+
+def _po2_runs(seq):
+    """Split ``seq`` into power-of-two runs, in order: 13 -> 8 + 4 + 1."""
+    i = 0
+    while i < len(seq):
+        step = 1 << ((len(seq) - i).bit_length() - 1)
+        yield seq[i:i + step]
+        i += step
 
 
 class CommitStream:
@@ -401,14 +456,18 @@ class CommitStream:
         return state
 
     def grow(self, state, new_capacity: int):
-        """Grow the store and re-broadcast it; refuses while ops are
-        staged. Returns ``(new_state, remap)``."""
+        """Grow the store (a wrapped store through its own ``grow``) and
+        re-broadcast it; refuses while ops are staged. Returns
+        ``(new_state, remap)``."""
         with self.lock:
             if self.buffer.pending:
                 raise RuntimeError(
                     f"grow with {self.buffer.pending} staged commit ops; "
                     f"drain (apply) the epoch first")
-            state, remap = grow_memory(state, new_capacity)
+            if isinstance(state, MemoryState):
+                state, remap = grow_memory(state, new_capacity)
+            else:
+                state, remap = state.grow(new_capacity)
             for v in self._views:
                 v.memory = state
                 if hasattr(v, "_ptr_base"):

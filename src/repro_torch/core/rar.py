@@ -11,8 +11,9 @@ static router decides, and a strong route runs shadow inference (Cases
 that owns the FM calls and the store writes, and
 :class:`repro_torch.core.pipeline.MicrobatchRAR` batches it.
 
-Not ported yet: the write-ahead journal (``journal_path``) and the IVF
-retrieval plane (``retrieval_clusters``); the controller refuses them.
+With ``retrieval_clusters > 0`` the store is wrapped in the IVF
+two-level read (:mod:`repro_torch.core.memory_ivf`). Not ported yet: the
+write-ahead journal (``journal_path``); the controller refuses it.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.core import memory as mem
 from repro_torch.core.decisions import select_guides  # noqa: F401
 from repro_torch.core.fm import (FMTier, ResilientTier, RetryPolicy,
                                  TierUnavailableError)
+from repro_torch.core.memory_ivf import wrap_store
 from repro_torch.data import tokenizer as tk
 
 
@@ -82,9 +84,10 @@ class RARConfig:
     # top-1 data plane (pinned in tests/test_pipeline.py).
     retrieval_k: int = 1
     max_guides: int = 1
-    # Two-level (IVF) retrieval plane of the JAX package. 0 (the default)
-    # keeps the exact store scan; the port's controllers refuse > 0 until
-    # the plane is ported.
+    # Two-level (IVF) retrieval plane: > 0 wraps the store in
+    # ``core.memory_ivf.IVFMemory`` with this many clusters, probing
+    # ``retrieval_probes`` of them per read; 0 (the default) keeps the
+    # exact store scan.
     retrieval_clusters: int = 0
     retrieval_probes: int = 4
     # Shadow-plane scheduling (batched controller only; the sequential
@@ -253,10 +256,6 @@ class RAR:
         if cfg.journal_path is not None:
             raise NotImplementedError("journal_path: the write-ahead "
                                       "journal is not ported yet (ROADMAP)")
-        if cfg.retrieval_clusters:
-            raise NotImplementedError("retrieval_clusters > 0: the IVF "
-                                      "retrieval plane is not ported yet "
-                                      "(ROADMAP)")
         if cfg.tier_resilience:
             policy = retry_policy(cfg)
             if not isinstance(weak, ResilientTier):
@@ -280,7 +279,9 @@ class RAR:
                 f"injected memory store (capacity {memory.capacity}, "
                 f"guide_len {memory.guide.shape[1]}) does not match "
                 f"cfg.memory {cfg.memory}")
-        self.memory = memory
+        # two-level retrieval: wrap the store once (an injected store that
+        # is already wrapped stays as it is)
+        self.memory = wrap_store(memory, cfg)
         self.now = 0
         # counters for the RQ2 analysis (Fig. 7)
         self.guides_from_memory = 0

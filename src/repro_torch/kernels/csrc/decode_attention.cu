@@ -14,6 +14,12 @@
 // once through shared memory in 32-key tiles, each warp owns up to 4 of
 // the G query heads, tiles outside [cache_len - window, cache_len) are
 // never loaded, and the arithmetic is plain f32 FMA.
+//
+// cache_len = 0 (an empty cache) gives zeros: no tile is loaded and the
+// output is 0 / max(0, 1e-37). This follows decode_attention_pallas, which
+// skips every block there; the JAX oracle ref.decode_attention (and the
+// plain version) instead averages all M rows, a disagreement inside the
+// reference. The serving path never decodes against an empty cache.
 #include "attention_common.cuh"
 
 using namespace repro_attn;

@@ -1,10 +1,17 @@
-"""Masked multi-query top-k over the padded guide store: the layout
-contract, the plain PyTorch version and the CUDA kernel's wrapper.
+"""Masked reads of the padded guide store: the layout contract, and for
+the top-k and the top-1 read the plain PyTorch versions and the CUDA
+kernels' wrappers.
 
-Replaces ``src/repro/kernels/memory_topk.py::memory_topk_batch_padded_pallas``
-(and its B=1 wrapper ``memory_topk_padded_pallas``). The kernel is
-``csrc/memory_topk.cu``; its header says what bounds it on the H100 and how
-the two-pass design replaces the TPU's sequential (k, B) accumulator.
+* top-k replaces ``src/repro/kernels/memory_topk.py::
+  memory_topk_batch_padded_pallas`` (and its B=1 wrapper
+  ``memory_topk_padded_pallas``); the kernel is ``csrc/memory_topk.cu``,
+  whose header says what bounds it on the H100 and how the two-pass design
+  replaces the TPU's sequential (k, B) accumulator;
+* top-1 replaces ``memory_top1_batch_padded_pallas`` and
+  ``memory_top1_padded_pallas``; the kernel is ``csrc/memory_top1.cu``
+  (one launch, an atomic 64-bit (sim, row) merge), and
+  :func:`memory_top1`/:func:`memory_top1_batch` are the compact-layout
+  wrappers ``memory_top1_pallas``/``memory_top1_batch_pallas``.
 
 Layout contract (identical to the JAX package, so row indices agree):
 
@@ -34,8 +41,10 @@ MASK_GUIDE = 2
 _ROW_TILE = 8
 _ROW_SENTINEL = 2 ** 30
 
-#: launches of the CUDA kernel (incremented where it is launched, only)
+#: launches of the top-k and the top-1 CUDA kernels (each incremented where
+#: its kernel is launched, only)
 launches = 0
+top1_launches = 0
 
 
 def padded_rows(c: int, block_c: int = DEFAULT_BLOCK_C) -> int:
@@ -126,14 +135,65 @@ def _masked(sims: torch.Tensor, mask: torch.Tensor, required: int
                        torch.tensor(-2.0, device=sims.device))
 
 
+def _pad_queries(qs: torch.Tensor, ep: int) -> torch.Tensor:
+    """(B, E) queries -> (B, Ep) f32, zero lanes after E: the only copy a
+    read makes, O(B * E)."""
+    qp = torch.zeros((qs.shape[0], ep), dtype=torch.float32,
+                     device=qs.device)
+    qp[:, :qs.shape[1]] = qs.float()
+    return qp
+
+
+def _dots(mem: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
+    """(Cp, Ep) rows against (B, E) queries -> (Cp, B) f32 dots, summed the
+    same way for every row (the lane products summed over the lanes), so
+    identical rows give identical sims and ties fall to the lowest row.
+    PyTorch's CPU matrix-vector and matrix products do not promise that:
+    they sum a matrix's last rows in another order, a few ulp apart. The
+    queries go in chunks of at most 2**24 product elements."""
+    m = mem.float()
+    qp = _pad_queries(qs, m.shape[1])
+    step = max(1, (1 << 24) // m.numel())
+    return torch.cat([(m[:, None, :] * qp[None, i:i + step]).sum(-1)
+                      for i in range(0, qp.shape[0], step)], dim=1)
+
+
+def memory_top1_padded_plain(mem, q, mask, required: int = MASK_VALID):
+    """Single query: q (E,) -> (sim (), idx ()). The first maximum (the
+    lowest row of a tie), as the JAX oracle's argmax; an empty view gives
+    (-2.0, 0)."""
+    sims = _masked(_dots(mem, q[None])[:, 0], mask, required)
+    idx = torch.argmax(sims)
+    return sims[idx], idx.to(torch.int32)
+
+
+def memory_top1_batch_padded_plain(mem, qs, mask, required: int = MASK_VALID):
+    """qs (B, E) -> (sims (B,), idx (B,)), each the first maximum of its
+    row of (B, Cp) sims."""
+    sims = _masked(_dots(mem, qs), mask, required).T
+    idx = torch.argmax(sims, dim=1)
+    return sims.gather(1, idx[:, None])[:, 0], idx.to(torch.int32)
+
+
+def memory_top1_plain(mem, q, mask):
+    """Compact layout: mem (C, E), q (E,), mask (C,) bool -> (sim, idx)."""
+    return memory_top1_padded_plain(*_compact(mem, mask, q))
+
+
+def memory_top1_batch_plain(mem, qs, mask):
+    """Compact layout: mem (C, E), qs (B, E), mask (C,) bool."""
+    return memory_top1_batch_padded_plain(*_compact(mem, mask, qs))
+
+
+def _compact(mem, mask, q):
+    memp, maskp = to_padded_layout(mem, mask)
+    return memp, q, maskp
+
+
 def memory_topk_padded_plain(mem, q, mask, k: int,
                              required: int = MASK_VALID):
-    """Single query: q (E,) -> (sims (k,), idx (k,)). A matrix-vector
-    product, as the JAX reference computes it."""
-    Ep = mem.shape[1]
-    qp = torch.zeros((Ep,), dtype=torch.float32, device=mem.device)
-    qp[:q.shape[0]] = q.float()
-    sims = _masked(mem.float() @ qp, mask, required)
+    """Single query: q (E,) -> (sims (k,), idx (k,))."""
+    sims = _masked(_dots(mem, q[None])[:, 0], mask, required)
     rows = torch.arange(sims.shape[0], dtype=torch.int32, device=mem.device)
     return _topk_select(sims, rows, k)
 
@@ -142,11 +202,7 @@ def memory_topk_batch_padded_plain(mem, qs, mask, k: int,
                                    required: int = MASK_VALID):
     """qs (B, E) -> (sims (B, k), idx (B, k)), each row sorted by
     (sim desc, row asc)."""
-    B, E = qs.shape
-    Ep = mem.shape[1]
-    qp = torch.zeros((B, Ep), dtype=torch.float32, device=mem.device)
-    qp[:, :E] = qs.float()
-    sims = _masked(mem.float() @ qp.T, mask, required)          # (Cp, B)
+    sims = _masked(_dots(mem, qs), mask, required)              # (Cp, B)
     rows = torch.arange(sims.shape[0], dtype=torch.int32,
                         device=mem.device)[:, None].expand_as(sims)
     s, r = _topk_select(sims, rows, k)                          # (k, B)
@@ -160,30 +216,37 @@ def memory_topk_batch_padded_plain(mem, qs, mask, k: int,
 _ROWS_PER_CTA = 128      # csrc/memory_topk.cu ROWS
 
 
+def check_cuda_inputs(mem, qs, mask, name: str) -> torch.Tensor:
+    """Validate a padded store (or centroid plane) read for a CUDA kernel:
+    mem (Cp, Ep) f32 and mask (Cp, 1) int32, contiguous, qs (B, E) with
+    E <= Ep, all on one card. Returns the (B, Ep) f32 padded queries."""
+    if mem.device.type != "cuda" or qs.device != mem.device or \
+            mask.device != mem.device:
+        raise ValueError(f"{name} kernel takes CUDA tensors on one device")
+    if mem.dtype != torch.float32 or mask.dtype != torch.int32:
+        raise TypeError(f"{name} kernel takes f32 mem and int32 mask, "
+                        f"got {mem.dtype}/{mask.dtype}")
+    if not (mem.is_contiguous() and mask.is_contiguous()):
+        raise ValueError(f"{name} kernel takes contiguous mem and mask")
+    Cp, Ep = mem.shape
+    if qs.dim() != 2 or mask.shape != (Cp, 1) or qs.shape[1] > Ep or \
+            Ep % 4 or qs.shape[0] < 1:
+        raise ValueError(f"bad shapes mem {tuple(mem.shape)}, qs "
+                         f"{tuple(qs.shape)}, mask {tuple(mask.shape)}")
+    return _pad_queries(qs, Ep)
+
+
 def memory_topk_batch_padded_cuda(mem, qs, mask, k: int,
                                   required: int = MASK_VALID):
     """Launch ``csrc/memory_topk.cu`` on CUDA tensors: mem (Cp, Ep) f32,
     qs (B, E) f32, mask (Cp, 1) int32 -> (sims (B, k) f32, idx (B, k)
     int32). Only the (B, E) query block is padded to Ep."""
     global launches
-    if mem.device.type != "cuda" or qs.device != mem.device or \
-            mask.device != mem.device:
-        raise ValueError("memory_topk kernel takes CUDA tensors on one "
-                         "device")
-    if mem.dtype != torch.float32 or mask.dtype != torch.int32:
-        raise TypeError(f"memory_topk kernel takes f32 mem and int32 mask, "
-                        f"got {mem.dtype}/{mask.dtype}")
-    if not (mem.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("memory_topk kernel takes contiguous mem and mask")
+    qp = check_cuda_inputs(mem, qs, mask, "memory_topk")
     Cp, Ep = mem.shape
-    B, E = qs.shape
-    if mask.shape != (Cp, 1) or E > Ep or Ep % 4:
-        raise ValueError(f"bad shapes mem {tuple(mem.shape)}, qs "
-                         f"{tuple(qs.shape)}, mask {tuple(mask.shape)}")
+    B = qs.shape[0]
     check_k(k, Cp)
     dev = mem.device
-    qp = torch.zeros((B, Ep), dtype=torch.float32, device=dev)
-    qp[:, :E] = qs
     nblk = -(-Cp // _ROWS_PER_CTA)
     cand_s = torch.empty((B, nblk, k), dtype=torch.float32, device=dev)
     cand_r = torch.empty((B, nblk, k), dtype=torch.int32, device=dev)
@@ -195,4 +258,25 @@ def memory_topk_batch_padded_cuda(mem, qs, mask, k: int,
         out_r.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "memory_topk_batch_padded")
     launches += 1
+    return out_s, out_r
+
+
+def memory_top1_batch_padded_cuda(mem, qs, mask, required: int = MASK_VALID):
+    """Launch ``csrc/memory_top1.cu`` on CUDA tensors: mem (Cp, Ep) f32,
+    qs (B, E) f32, mask (Cp, 1) int32 -> (sims (B,) f32, idx (B,) int32).
+    One launch for the B queries (B = 1 is the single-query read)."""
+    global top1_launches
+    qp = check_cuda_inputs(mem, qs, mask, "memory_top1")
+    Cp, Ep = mem.shape
+    B = qs.shape[0]
+    dev = mem.device
+    scratch = torch.empty((B + 1,), dtype=torch.int64, device=dev)
+    out_s = torch.empty((B,), dtype=torch.float32, device=dev)
+    out_r = torch.empty((B,), dtype=torch.int32, device=dev)
+    err = _build.lib().memory_top1_batch_padded(
+        mem.data_ptr(), qp.data_ptr(), mask.data_ptr(), Cp, Ep, B, required,
+        scratch.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "memory_top1_batch_padded")
+    top1_launches += 1
     return out_s, out_r

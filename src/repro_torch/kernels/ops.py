@@ -13,11 +13,16 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import memory_ivf as _ivf
 from repro_torch.kernels import memory_topk as _mt
 from repro_torch.kernels.memory_topk import MASK_VALID
 
-KERNELS = {"memory_topk": _mt, "flash_attention": _fa,
-           "decode_attention": _da}
+#: each kernel's launch counter: (module, attribute)
+KERNELS = {"memory_topk": (_mt, "launches"),
+           "memory_top1": (_mt, "top1_launches"),
+           "ivf_route": (_ivf, "launches"),
+           "flash_attention": (_fa, "launches"),
+           "decode_attention": (_da, "launches")}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -30,12 +35,45 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def launch_counts() -> dict[str, int]:
     """Launch count of every CUDA kernel since the last reset."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launches() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
+
+
+def memory_top1_batch_padded(mem, qs, mask, required: int = MASK_VALID):
+    """Zero-copy multi-query top-1 over the padded store layout:
+    (sims (B,), idx (B,)), the max sim and the lowest row of a tie; an
+    empty view gives (-2.0, 0)."""
+    if _on_cuda(mem):
+        return _mt.memory_top1_batch_padded_cuda(mem, qs, mask, required)
+    return _mt.memory_top1_batch_padded_plain(mem, qs, mask, required)
+
+
+def memory_top1_padded(mem, q, mask, required: int = MASK_VALID):
+    """Single-query top-1: (sim (), idx ()). On the card it is the top-1
+    kernel with one query."""
+    if _on_cuda(mem):
+        s, r = _mt.memory_top1_batch_padded_cuda(mem, q[None], mask,
+                                                 required)
+        return s[0], r[0]
+    return _mt.memory_top1_padded_plain(mem, q, mask, required)
+
+
+def memory_top1(mem, q, mask):
+    """Compact layout: mem (C, E), q (E,), mask (C,) bool -> (sim, idx),
+    through the padded layout (one O(C * E) copy: not a serving path)."""
+    memp, maskp = _mt.to_padded_layout(mem, mask)
+    return memory_top1_padded(memp, q, maskp)
+
+
+def memory_top1_batch(mem, qs, mask):
+    """Compact layout: mem (C, E), qs (B, E), mask (C,) bool."""
+    memp, maskp = _mt.to_padded_layout(mem, mask)
+    return memory_top1_batch_padded(memp, qs, maskp)
 
 
 def memory_topk_batch_padded(mem, qs, mask, k: int,
@@ -76,3 +114,28 @@ def decode_attention(q, k, v, cache_len, *, window: int = 0,
                                          scale=scale)
     return _da.decode_attention_plain(q, k, v, cache_len, window=window,
                                       scale=scale)
+
+
+def ivf_route_batch_padded(cent, qs, cmask, n_probe: int,
+                           required: int = MASK_VALID):
+    """Top-``n_probe`` centroid rows per query over the padded centroid
+    plane: (scores (B, n_probe), cids (B, n_probe)) sorted by
+    (score desc, row asc)."""
+    if _on_cuda(cent):
+        return _ivf.ivf_route_batch_padded_cuda(cent, qs, cmask, n_probe,
+                                                required)
+    _mt.check_k(n_probe, cent.shape[0])
+    return _ivf.ivf_route_batch_padded_plain(cent, qs, cmask, n_probe,
+                                             required)
+
+
+def ivf_route_padded(cent, q, cmask, n_probe: int,
+                     required: int = MASK_VALID):
+    """Single-query route: (scores (n_probe,), cids (n_probe,)); on the
+    card the batch kernel with one query."""
+    if _on_cuda(cent):
+        s, c = _ivf.ivf_route_batch_padded_cuda(cent, q[None], cmask,
+                                                n_probe, required)
+        return s[0], c[0]
+    _mt.check_k(n_probe, cent.shape[0])
+    return _ivf.ivf_route_padded_plain(cent, q, cmask, n_probe, required)

@@ -10,8 +10,9 @@ other rounds:
 * products accumulate in f32 and are cast back to the activation dtype at
   the same points as the JAX ``preferred_element_type=f32`` einsums.
   Where JAX keeps such a product in f32 (the MLP's gate/up, the logits),
-  a bf16 model here rounds it to bf16 first, because a PyTorch bf16 GEMM
-  returns bf16; f32 models are unaffected.
+  :func:`_matmul_f32` keeps it too: on the card a bf16 GEMM that writes
+  f32, on the CPU a product of the operands upcast to f32 (exact, since
+  the products of bf16 values are exact in f32).
 
 Attention itself is not here: the model calls the kernels through
 :mod:`repro_torch.kernels.ops` (flash attention for sequences, decode
@@ -40,9 +41,9 @@ def normal(gen: torch.Generator, shape, std: float, dtype,
     return (x * std).to(dtype)
 
 
-def dense_init(gen, shape, in_axis: int = 0, dtype=torch.float32,
-               device="cpu") -> torch.Tensor:
-    """Fan-in scaled normal init (``layers.dense_init``)."""
+def dense_init(gen, shape, in_axis: int, dtype, device) -> torch.Tensor:
+    """Fan-in scaled normal init (``layers.dense_init``) on ``device``, the
+    generator's."""
     return normal(gen, shape, shape[in_axis] ** -0.5, dtype, device)
 
 
@@ -127,10 +128,25 @@ def attention_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., D) @ w (D, F) with an f32 result, whatever the operands'
+    dtype: ``preferred_element_type=f32``. A bf16 product on the card is
+    one bf16 GEMM that writes f32 (the weights are read as they are, not
+    upcast per call); on the CPU, which has no such GEMM, both operands
+    are upcast."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cuda":
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.view(*x.shape[:-1], w.shape[1])
+    return x.float() @ w.float()
+
+
 def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    up = (x @ params["w_up"]).float()
+    up = _matmul_f32(x, params["w_up"])
     if "w_gate" in params:
-        h = F.silu((x @ params["w_gate"]).float()) * up
+        h = F.silu(_matmul_f32(x, params["w_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")
     return h.to(x.dtype) @ params["w_down"]
@@ -138,4 +154,4 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def unembed(embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits (B, S, V) in f32 from x (B, S, D) and a (V, D) table."""
-    return (x @ embedding.T).float()
+    return _matmul_f32(x, embedding.T)

@@ -4,7 +4,7 @@ and no JAX; skips without a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: top-k rows exact and sims within 1e-6; attention 2e-5 in f32
+Tolerances: top-k, top-1 and route rows exact and sims within 1e-6; attention 2e-5 in f32
 and 2e-2 (about one bf16 ulp at |x| < 4) in bf16.
 """
 import numpy as np
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import memory_ivf as tivf
 from repro_torch.kernels import memory_topk as tmt
 
 
@@ -57,6 +58,57 @@ def test_cuda_topk_matches_plain(rng, cuda, C, B, k):
     np.testing.assert_array_equal(ci.cpu().numpy(), pi.numpy())
     np.testing.assert_allclose(cs.cpu().numpy(), ps.numpy(), atol=1e-6,
                                rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,B", [(4096, 32), (65536, 8), (136, 1),
+                                 (1000, 33)])
+@pytest.mark.parametrize("required", [tmt.MASK_VALID,
+                                      tmt.MASK_VALID | tmt.MASK_GUIDE])
+def test_cuda_top1_matches_plain(rng, cuda, C, B, required):
+    mem, bits = _store(rng, C, 384)
+    memp, maskp = tmt.to_padded_layout(torch.from_numpy(mem),
+                                       torch.from_numpy(bits))
+    qs = _queries(rng, B, 384)
+    qs[0] = mem[C // 3]                      # ties across row blocks
+    qs = torch.from_numpy(qs)
+    ps, pi = tmt.memory_top1_batch_padded_plain(memp, qs, maskp, required)
+    cs, ci = tmt.memory_top1_batch_padded_cuda(memp.to(cuda), qs.to(cuda),
+                                               maskp.to(cuda), required)
+    np.testing.assert_array_equal(ci.cpu().numpy(), pi.numpy())
+    np.testing.assert_allclose(cs.cpu().numpy(), ps.numpy(), atol=1e-6,
+                               rtol=0)
+    # an empty view: (-2.0, 0), as the Pallas kernel's seeded best
+    zero = torch.zeros_like(maskp).to(cuda)
+    cs, ci = tmt.memory_top1_batch_padded_cuda(memp.to(cuda), qs.to(cuda),
+                                               zero, required)
+    assert (cs == -2.0).all() and (ci == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B,n_probe", [(64, 1, 4), (1024, 32, 64),
+                                         (1024, 8, 1024), (3000, 3, 300),
+                                         (9, 5, 9)])
+def test_cuda_route_matches_plain(rng, cuda, P, B, n_probe):
+    cent = _queries(rng, P, 384)
+    cent[P // 2] = cent[0]
+    bits = (rng.random(P) < 0.8).astype(np.int32) * tmt.MASK_VALID
+    centp, cmaskp = tmt.to_padded_layout(torch.from_numpy(cent),
+                                         torch.from_numpy(bits))
+    qs = _queries(rng, B, 384)
+    qs[0] = cent[0]
+    qs = torch.from_numpy(qs)
+    ps, pi = tivf.ivf_route_batch_padded_plain(centp, qs, cmaskp, n_probe)
+    cs, ci = tivf.ivf_route_batch_padded_cuda(centp.to(cuda), qs.to(cuda),
+                                              cmaskp.to(cuda), n_probe)
+    np.testing.assert_array_equal(ci.cpu().numpy(), pi.numpy())
+    np.testing.assert_allclose(cs.cpu().numpy(), ps.numpy(), atol=1e-6,
+                               rtol=0)
+    with pytest.raises(ValueError):
+        tivf.ivf_route_batch_padded_cuda(centp.to(cuda), qs.to(cuda),
+                                         cmaskp.to(cuda),
+                                         tmt._pick_block(centp.shape[0],
+                                                         1024) + 1)
 
 
 @pytest.mark.cuda

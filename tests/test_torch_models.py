@@ -1,6 +1,8 @@
 """The port's dense model and embedder against the JAX package's on the
 same (bridged) weights: prefill and decode logits within 1e-4, greedy
-tokens identical, embeddings at cosine >= 1 - 1e-6."""
+tokens identical, embeddings at cosine >= 1 - 1e-6; a bf16 model keeps
+the MLP's gate/up products and the logits in f32 where JAX does."""
+import dataclasses
 from functools import partial
 
 import jax
@@ -14,6 +16,7 @@ from repro.configs import rar_system as jrar
 from repro.core import embedder as jemb
 from repro.models import decode_step as jdecode
 from repro.models import init_params as jinit
+from repro.models import layers as jlayers
 from repro.models import prefill as jprefill
 from repro_torch import bridge
 from repro_torch.configs import llama3_8b as tllama
@@ -21,6 +24,7 @@ from repro_torch.configs import rar_system as trar
 from repro_torch.core import embedder as temb
 from repro_torch.data import tokenizer as tk
 from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models import layers as tlayers
 
 STEPS = 2
 CFGS = {"weak": (jrar.WEAK, trar.WEAK), "strong": (jrar.STRONG, trar.STRONG),
@@ -109,3 +113,60 @@ def test_torch_init_matches_distribution():
     assert abs(p["embed"].std().item() - 1.0) < 0.05
     tree = jax.tree.map(lambda t: t.numpy(), p)
     bridge.lm_params(trar.WEAK, tree, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# bf16 cast points
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bf16_weak():
+    """WEAK at 2 layers with bf16 weights, bridged bit for bit."""
+    jc = dataclasses.replace(jrar.WEAK, param_dtype="bfloat16", num_layers=2)
+    tc = dataclasses.replace(trar.WEAK, param_dtype="bfloat16", num_layers=2)
+    jp = jax.jit(jinit, static_argnums=0)(jc, jax.random.PRNGKey(0))
+    return jc, jp, tc, bridge.lm_params(tc, jax.tree.map(np.asarray, jp),
+                                        device="cpu")
+
+
+def test_bf16_mlp_and_unembed_keep_f32_products(bf16_weak):
+    """JAX keeps the gate/up products and the logits in f32
+    (``preferred_element_type``); rounding them to bf16 first puts the MLP
+    output ~1e-2 and the logits ~1e-2 off. The products of bf16 values are
+    exact in f32, so only the order of the f32 sums differs: 1e-6 on the
+    MLP's bf16 output (no rounding flips at these inputs), 1e-5 on logits
+    of magnitude ~5."""
+    jc, jp, tc, tp = bf16_weak
+    x = np.random.default_rng(0).normal(size=(2, 9, 128)).astype(np.float32)
+    xj, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    jm = jax.tree.map(lambda a: a[0], jp["layers"]["mlp"])
+    tm = {k: v[0] for k, v in tp["layers"]["mlp"].items()}
+    want = np.asarray(jlayers.mlp(jm, xj).astype(jnp.float32))
+    got = tlayers.mlp(tm, xt).float().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    want = np.asarray(jlayers.unembed(jp["unembed"], xj))
+    got = tlayers.unembed(tp["unembed"], xt)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_bf16_prefill_matches_jax(bf16_weak):
+    """One-token prompts make attention exact on both sides (softmax over
+    one key), so the whole bf16 model is held at 1e-5 against the JAX
+    prefill run op by op (jitted, XLA keeps bf16 intermediates in f32 and
+    rounds elsewhere); before the fix the logits were 9e-3 off. Longer
+    prompts differ by design in attention (``layers.attention`` rounds its
+    probabilities to bf16, the kernels do not): greedy tokens identical."""
+    jc, jp, tc, tp = bf16_weak
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(1, tc.vocab_size, size=(4, 1)).astype(np.int32)
+    with jax.disable_jit():
+        want = np.asarray(jprefill(jc, jp, {"tokens": jnp.asarray(tokens)},
+                                   3)[0])
+    got = prefill(tc, tp, {"tokens": torch.from_numpy(tokens).long()}, 3)[0]
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    tokens = rng.integers(1, tc.vocab_size, size=(4, 17)).astype(np.int32)
+    want = np.asarray(_jax_run(jc, jp, jnp.asarray(tokens)))
+    got = _torch_run(tc, tp, tokens)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))

@@ -1,8 +1,11 @@
 """The port's RAR controllers against the JAX package's: the same Outcome
 stream, FM-call counts and store on every ``SCENARIOS`` case (rule-based
-FakeTier tiers), and on the ``rar_throughput`` workload with the JAX
-tiers' weights bridged into the port: 192 strong calls per 128 requests,
-as ``BENCH_rar_throughput.json`` records."""
+FakeTier tiers), with the exact store scan and with the IVF two-level
+read, and on the ``rar_throughput`` workload with the JAX tiers' weights
+bridged into the port: 192 strong calls per 128 requests, as
+``BENCH_rar_throughput.json`` records. The top-1 reads ``query``/
+``query_batch`` against JAX's on the same stores: indices and metadata
+exact, sims within 2 ulp at 1.0."""
 import dataclasses
 
 import jax
@@ -12,7 +15,10 @@ import torch
 from test_pipeline import MEM_FIELDS, SCENARIOS, make_stream
 from test_rar_controller import FakeTier, greq, make_cfg, prompt, skill_emb
 
+import jax.numpy as jnp
+
 from repro.configs import rar_system as jrar
+from repro.core import memory as jmem
 from repro.core.fm import FMTier as JTier
 from repro.core.pipeline import MicrobatchRAR as JMicro
 from repro.core.rar import RAR as JRAR
@@ -22,6 +28,7 @@ from repro.models import init_params as jinit
 from repro_torch import bridge
 from repro_torch.configs import rar_system as trar
 from repro_torch.core import memory as tmem
+from repro_torch.core.memory_ivf import IVFMemory
 from repro_torch.core.fm import FMTier as TTier
 from repro_torch.core.pipeline import MicrobatchRAR as TMicro
 from repro_torch.core.rar import RAR as TRAR
@@ -102,6 +109,128 @@ def test_scenarios_match_jax_controller(kw, batch):
     assert t.weak.engine.calls == j.weak.engine.calls
     assert t.strong.engine.calls == j.strong.engine.calls
     assert t.memory_occupancy == j.memory_occupancy
+
+
+@pytest.mark.parametrize("kw", SCENARIOS)
+@pytest.mark.parametrize("batch", [0, 4])
+def test_ivf_scenarios_match_jax_controller(kw, batch):
+    """``retrieval_clusters`` 4 with 2 probes: an approximate read whose
+    misses must be the JAX plane's misses too."""
+    kw = dict(kw, retrieval_clusters=4, retrieval_probes=2)
+    tiers = {k: kw.pop(k) for k in ("weak_known", "weak_follows_guides")
+             if k in kw}
+    jcfg = make_cfg(**kw)
+    stream = make_stream()
+    jcls, tcls = (JRAR, TRAR) if batch == 0 else (JMicro, TMicro)
+    j, jouts = _serve(jcls, jcfg, stream, batch, _fake_tiers(**tiers))
+    t, touts = _serve(tcls, _port_cfg(jcfg), stream, batch,
+                      _fake_tiers(**tiers), device="cpu")
+    assert isinstance(t.memory, IVFMemory)
+    assert _plain(touts) == _plain(jouts)
+    _same_store(j.memory.store, t.memory.store)
+    assert t.memory.stats() == j.memory.stats()
+    np.testing.assert_array_equal(t.memory._assign, j.memory._assign)
+    np.testing.assert_array_equal(t.memory._members, j.memory._members)
+    assert (t.now, t.guides_from_memory, t.guides_generated) == \
+        (j.now, j.guides_from_memory, j.guides_generated)
+    assert t.weak.engine.calls == j.weak.engine.calls
+    assert t.strong.engine.calls == j.strong.engine.calls
+
+
+def _top1_store(rng, C=64, E=16, G=8):
+    """The same store in both packages: duplicate rows (exact ties), half
+    of the entries with guides."""
+    embs = rng.normal(size=(40, E)).astype(np.float32)
+    embs /= np.linalg.norm(embs, axis=1, keepdims=True)
+    embs[9] = embs[2]
+    guides = rng.integers(0, 50, (40, G)).astype(np.int32)
+    hg = rng.random(40) < 0.5
+    hg[[2, 9]] = True
+    hard = rng.random(40) < 0.3
+    nows = np.arange(1, 41, dtype=np.int32)
+    js = jmem.init_memory(jmem.MemoryConfig(capacity=C, embed_dim=E,
+                                            guide_len=G))
+    ts = tmem.init_memory(tmem.MemoryConfig(capacity=C, embed_dim=E,
+                                            guide_len=G), device="cpu")
+    js = jmem.add_batch(js, jnp.asarray(embs), jnp.asarray(guides),
+                        jnp.asarray(hg), jnp.asarray(hard), jnp.asarray(nows))
+    tmem.add_batch(ts, embs, guides, hg, hard, nows)
+    return js, ts, embs
+
+
+@pytest.mark.parametrize("guides_only", [False, True])
+def test_query_and_query_batch_match_jax(guides_only):
+    ulp2 = 2 * float(np.finfo(np.float32).eps)
+    rng = np.random.default_rng(3)
+    js, ts, embs = _top1_store(rng)
+    qs = np.concatenate([embs[[2, 0, 9]], rng.normal(size=(4, 16)).astype(
+        np.float32)])
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    jq = jmem.query_batch(js, jnp.asarray(qs),
+                          guides_only=guides_only).device_get()
+    tq = tmem.query_batch(ts, qs, guides_only=guides_only).device_get()
+    np.testing.assert_array_equal(np.asarray(jq.meta), tq.meta)
+    np.testing.assert_allclose(np.asarray(jq.sim), tq.sim, atol=ulp2,
+                               rtol=0)
+    assert tq.index[0] == 2                   # tie: the lower row
+    for q in qs[:3]:
+        jq1 = jmem.query(js, jnp.asarray(q),
+                         guides_only=guides_only).device_get()
+        tq1 = tmem.query(ts, q, guides_only=guides_only).device_get()
+        np.testing.assert_array_equal(np.asarray(jq1.meta), tq1.meta)
+        np.testing.assert_allclose(float(jq1.sim), float(tq1.sim),
+                                   atol=ulp2, rtol=0)
+    # an empty view: (-2.0, row 0) and row 0's metadata, on both sides
+    je = jmem.init_memory(jmem.MemoryConfig(capacity=64, embed_dim=16,
+                                            guide_len=8))
+    te = tmem.init_memory(tmem.MemoryConfig(capacity=64, embed_dim=16,
+                                            guide_len=8), device="cpu")
+    jq = jmem.query_batch(je, jnp.asarray(qs[:2])).device_get()
+    tq = tmem.query_batch(te, qs[:2]).device_get()
+    np.testing.assert_array_equal(np.asarray(jq.meta), tq.meta)
+    assert tq.sim.tolist() == [-2.0, -2.0] and tq.index.tolist() == [0, 0]
+
+
+class _Top1RAR(TRAR):
+    """The port's sequential controller reading through ``query``."""
+
+    def _lookup(self, emb, guides_only=False):
+        q = tmem.query(self.memory, emb, guides_only=guides_only)
+        q = q.device_get()
+        return tmem.TopKResult(sim=np.asarray(q.sim)[None],
+                               meta=np.asarray(q.meta)[None])
+
+
+class _Top1Micro(TMicro):
+    """The port's batched controller reading through ``query_batch``."""
+
+    def _lookup_batch(self, embs, guides_only=False):
+        q = tmem.query_batch(self.memory, embs,
+                             guides_only=guides_only).device_get()
+        return tmem.TopKResult(sim=q.sim[:, None], meta=q.meta[:, None])
+
+
+@pytest.mark.parametrize("kw", SCENARIOS[:4])
+@pytest.mark.parametrize("batch", [0, 4])
+def test_top1_path_controllers_match_jax(kw, batch):
+    """The port's controllers on the top-1 reads serve the JAX
+    controllers' Outcome streams (retrieval_k = 1, where top-1 and top-k
+    are the same decision), with the exact scan and with the IVF plane
+    (whose ``query``/``query_batch`` are its k = 1 reads)."""
+    kw = dict(kw)
+    tiers = {k: kw.pop(k) for k in ("weak_known", "weak_follows_guides")
+             if k in kw}
+    for ivf in ({}, dict(retrieval_clusters=4, retrieval_probes=2)):
+        jcfg = make_cfg(**kw, **ivf)
+        stream = make_stream()
+        j, jouts = _serve(JRAR if batch == 0 else JMicro, jcfg, stream,
+                          batch, _fake_tiers(**tiers))
+        t, touts = _serve(_Top1RAR if batch == 0 else _Top1Micro,
+                          _port_cfg(jcfg), stream, batch,
+                          _fake_tiers(**tiers), device="cpu")
+        assert _plain(touts) == _plain(jouts)
+        _same_store(getattr(j.memory, "store", j.memory),
+                    getattr(t.memory, "store", t.memory))
 
 
 def test_task_suite_and_vocab_match_jax():
