@@ -10,7 +10,11 @@ Phases, each of which fails the run on any error:
 * K: every kernel against its plain PyTorch version on the card at the
   main path's shapes (the RAR tiers, the embedder, llama3-8b, the guide
   store at 4096 and 65536 rows, the IVF centroid planes), with its time,
-  the plain version's, a PyTorch library call's and the bound;
+  the plain version's, a PyTorch library call's and the bound; at
+  llama3-8b also each attention kernel's and SDPA's device time a call
+  (``torch.profiler``) and time with the L2 flushed; and the split-KV
+  decode's own cases (caches of 1024 and 4096, cache_len per row, an
+  empty cache);
 * R: ``MicrobatchRAR`` serving the ``rar_throughput`` workload (pool 64,
   2 passes, microbatch 8 and 32) on the card and on the CPU in the same
   process, with identical Outcome streams, FM calls and stores required
@@ -78,6 +82,60 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_events(prof, path):
+    """The card's kernels, copies and memsets in a finished
+    ``torch.profiler`` run, read back from its chrome trace at ``path``."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def device_ms(torch, fn, tag, iters=20):
+    """Device time of one call of ``fn`` (all its kernels, copies and
+    memsets) from ``torch.profiler`` over ``iters`` calls after a warm-up,
+    and the kernel names seen."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that caught no device activity is retried
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof, ROOT / "build" / "trace" /
+                               f"k_{tag}.json")
+        if events:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler saw no device activity ({tag})")
+    names = sorted({e["name"].removeprefix("void ")[:40] for e in events})
+    return sum(e["dur"] for e in events) / 1e3 / iters, names
+
+
+def cold_ms(torch, fn, iters=20):
+    """CUDA-event time of one call of ``fn`` with the L2 cache flushed
+    before it: a 64 MB buffer is written and the stream held ~0.1 ms
+    (``torch.cuda._sleep``) outside the timed window, so the call is
+    queued before its start event fires and meets a cold L2, as each
+    layer's cache does in a decode step behind the weight stream."""
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=DEV)
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(200_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
 def card_line() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -112,13 +170,25 @@ def phase_k(torch):
     rng = np.random.default_rng(0)
     rows = {}
 
-    def record(name, key, err, ms, plain_ms, lib_ms, b):
+    def record(name, key, err, ms, plain_ms, lib_ms, b, **extra):
+        more = "".join(f" {k}={v:.4f}" if isinstance(v, float) else
+                       f" {k}={v}" for k, v in extra.items())
         log(f"K {name} {key}: max_abs_err={err:.3e} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b[0]:.5f} ({b[1]})")
+            f"bound_ms={b[0]:.5f} ({b[1]}){more}")
         rows.setdefault(name, []).append(
             dict(key=key, err=err, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=b[0], bound_by=b[1]))
+                 library_ms=lib_ms, bound_ms=b[0], bound_by=b[1], **extra))
+
+    def card_times(tag, kernel, lib):
+        """The attention kernel's and SDPA's device time a call
+        (profiler) and CUDA-event time with the L2 flushed."""
+        k_dev, k_names = device_ms(torch, kernel, tag + "_kernel")
+        l_dev, l_names = device_ms(torch, lib, tag + "_sdpa")
+        return dict(device_ms=k_dev, library_device_ms=l_dev,
+                    cold_ms=cold_ms(torch, kernel),
+                    library_cold_ms=cold_ms(torch, lib),
+                    kernels=k_names, library_kernels=l_names)
 
     # -- store read: C in {4096, 65536} x 384, ties and signed zeros ------
     for C in (4096, 65536):
@@ -309,47 +379,89 @@ def phase_k(torch):
         es = q.element_size()
         b = bound((2 * q.numel() + 2 * k.numel()) * es, 4 * pairs * hd,
                   BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-        record("flash_attention",
-               f"{tag} B={B} Sq={Sq} H={H} KV={KV} hd={hd} "
-               f"{str(dtype)[6:]} window={window} causal={causal}", err,
-               time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, **kw)),
+
+        def kernel():
+            return fa.flash_attention_cuda(q, k, v, **kw)
+        key = (f"{tag} B={B} Sq={Sq} H={H} KV={KV} hd={hd} "
+               f"{str(dtype)[6:]} window={window} causal={causal}"
+               + ("" if kv_len is None else f" kv_len={kv_len}"))
+        extra = (card_times(f"flash_Sq{Sq}_w{window}", kernel, lib)
+                 if tag == "llama3-8b" else {})
+        record("flash_attention", key, err, time_ms(torch, kernel),
                time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
                                                                **kw)),
-               time_ms(torch, lib), b)
+               time_ms(torch, lib), b, **extra)
 
     def decode_case(tag, B, M, cl, H, KV, hd, dtype, window=0):
+        """``cl``: one cache length for every row, or a list of B. It goes
+        in as a (B,) int32 tensor already on the card, as the model passes
+        it, so no timed call pays a host-to-device copy."""
         g = torch.Generator(device=dev).manual_seed(M * 1000 + H)
         q = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
         k = torch.randn((B, M, KV, hd), generator=g, device=dev).to(dtype)
         v = torch.randn((B, M, KV, hd), generator=g, device=dev).to(dtype)
-        got = da.decode_attention_cuda(q, k, v, cl, window=window)
-        want = da.decode_attention_plain(q, k, v, cl, window=window)
+        lens = [cl] * B if isinstance(cl, int) else list(cl)
+        clt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = da.decode_attention_cuda(q, k, v, clt, window=window)
+        want = da.decode_attention_plain(q, k, v, clt, window=window)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         if not err <= tol:
-            raise AssertionError(f"decode {tag} M={M}: err {err} > {tol}")
-        lo = max(0, cl - window) if window else 0
+            raise AssertionError(f"decode {tag} M={M} cache_len={cl}: err "
+                                 f"{err} > {tol}")
+        spans = [(max(0, n - window) if window else 0, min(M, n))
+                 for n in lens]
         qt = q[:, :, None]
-        kt = k[:, lo:cl].transpose(1, 2)
-        vt = v[:, lo:cl].transpose(1, 2)
+        if len(set(lens)) == 1:
+            lo, hi = spans[0]
+            kt = k[:, lo:hi].transpose(1, 2)
+            vt = v[:, lo:hi].transpose(1, 2)
+            mask = None
+        else:
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            pos = torch.arange(M, device=dev)
+            mask = torch.stack([(pos >= lo) & (pos < hi)
+                                for lo, hi in spans])[:, None, None, :]
 
         def lib():
-            return F.scaled_dot_product_attention(qt, kt, vt,
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
-        n = cl - lo
+
+        def kernel():
+            return da.decode_attention_cuda(q, k, v, clt, window=window)
+        n = sum(hi - lo for lo, hi in spans)
         es = q.element_size()
-        b = bound((2 * q.numel() + 2 * B * n * KV * hd) * es,
-                  4 * B * H * n * hd,
+        b = bound((2 * q.numel() + 2 * n * KV * hd) * es, 4 * H * n * hd,
                   BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        shown = cl if isinstance(cl, int) else list(cl)
+        extra = (card_times(f"decode_M{M}_w{window}_B{B}", kernel, lib)
+                 if tag == "llama3-8b" else {})
         record("decode_attention",
-               f"{tag} B={B} M={M} cache_len={cl} H={H} KV={KV} hd={hd} "
+               f"{tag} B={B} M={M} cache_len={shown} H={H} KV={KV} hd={hd} "
                f"{str(dtype)[6:]} window={window}", err,
-               time_ms(torch, lambda: da.decode_attention_cuda(
-                   q, k, v, cl, window=window)),
+               time_ms(torch, kernel),
                time_ms(torch, lambda: da.decode_attention_plain(
-                   q, k, v, cl, window=window)),
-               time_ms(torch, lib), b)
+                   q, k, v, clt, window=window)),
+               time_ms(torch, lib), b, **extra)
+
+    def decode_empty_cache(H, KV, hd, dtype):
+        """cache_len 0 in one row gives zeros there (the kernel's rule,
+        after decode_attention_pallas) and the plain answer in the other."""
+        g = torch.Generator(device=dev).manual_seed(7)
+        q = torch.randn((2, H, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((2, 64, KV, hd), generator=g, device=dev).to(dtype)
+        clt = torch.tensor([0, 50], dtype=torch.int32, device=dev)
+        got = da.decode_attention_cuda(q, k, k, clt).float()
+        want = da.decode_attention_plain(q, k, k, clt).float()
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], torch.zeros_like(got[0])):
+            raise AssertionError("decode with cache_len 0 is not zeros")
+        err = (got[1] - want[1]).abs().max().item()
+        if not err <= ATTN_TOL[str(dtype).split(".")[1]]:
+            raise AssertionError(f"decode next to an empty row: err {err}")
+        log(f"K decode_attention cache_len=[0, 50] H={H} KV={KV} hd={hd} "
+            f"{str(dtype)[6:]}: row 0 zeros, row 1 max_abs_err={err:.3e}")
 
     f32, bf16 = torch.float32, torch.bfloat16
     for Sq in (1, 7, 17, 26, 130):
@@ -363,6 +475,19 @@ def phase_k(torch):
             attn_case("llama3-8b", 1, Sq, 32, 8, 128, bf16, window=window)
             decode_case("llama3-8b", 1, Sq + LLAMA_MAX_NEW, Sq + 1, 32, 8,
                         128, bf16, window=window)
+        attn_case("llama3-8b", 1, Sq, 32, 8, 128, bf16, kv_len=Sq - 7)
+    # split-KV: several chunks with keys, a window of 100 keys (7 chunks of
+    # 16 from its start), cache_len per row, an empty row
+    for cl in (1024, 4096):
+        decode_case("llama3-8b", 1, cl + LLAMA_MAX_NEW, cl, 32, 8, 128, bf16)
+    decode_case("llama3-8b", 1, 1024 + LLAMA_MAX_NEW, 1024, 32, 8, 128, bf16,
+                window=100)
+    decode_case("llama3-8b", 8, 300 + LLAMA_MAX_NEW,
+                [301, 17, 130, 300, 1, 64, 255, 308], 32, 8, 128, bf16)
+    decode_case("rar-strong", 8, 132, [131, 3, 64, 132, 1, 77, 100, 16], 6,
+                6, 32, f32)
+    decode_empty_cache(32, 8, 128, bf16)
+    decode_empty_cache(6, 6, 32, f32)
     return rows
 
 
@@ -819,7 +944,6 @@ def _trace_summary(torch, tag, fn, n_steps):
     from torch.profiler import ProfilerActivity, profile
 
     path = ROOT / "build" / "trace" / f"{tag}.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -831,9 +955,7 @@ def _trace_summary(torch, tag, fn, n_steps):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(str(path))
-    events = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    events = device_events(prof, path)
     busy, end = 0.0, float("-inf")
     for s, t in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if t > end:
@@ -857,6 +979,10 @@ def _trace_summary(torch, tag, fn, n_steps):
     for d, top in ((by_kind, 4), (by_name, 8)):
         for key, (n, us) in sorted(d.items(), key=lambda kv: -kv[1][1])[:top]:
             log(f"T {tag}:   {us / 1e3:9.3f} ms  {n:6d} x  {key}")
+    for key, (n, us) in sorted(by_name.items()):
+        if any(k in key for k in OUR_KERNELS):
+            log(f"T {tag}: port kernel {us / 1e3:.3f} ms over {n} launches "
+                f"({us / n:.2f} us each)  {key}")
 
 
 def trace() -> int:
@@ -970,7 +1096,10 @@ def main() -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"], "shape": MAIN_SHAPE[name]})
+            "library_ms": main_row["library_ms"], "shape": MAIN_SHAPE[name],
+            **{k: main_row[k] for k in ("device_ms", "library_device_ms",
+                                        "cold_ms", "library_cold_ms")
+               if k in main_row}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,36 @@
 // Shared pieces of the two attention kernels (flash_attention.cu,
-// decode_attention.cu): dtype conversion, warp reductions and the
-// online-softmax update of one query row against one 32-key tile.
-//
-// Layout of the per-row state: a warp owns a query row; lane `l` keeps the
-// output dims d = l + 32*i (i < DPL, DPL = head_dim / 32) of the f32
-// accumulator, so V-tile reads are one coalesced 32-float line per key.
-// For the scores each lane takes one key of the tile (BK == 32) and dots
-// the whole head_dim against the query row held in shared memory.
+// decode_attention.cu): dtype conversion, warp reductions, 16-byte
+// cp.async tile copies into shared memory, and f32 dot products of a
+// query row against a staged key row with independent partial sums.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace repro_attn {
 
-constexpr int BK = 32;                       // keys per tile == warp width
+// A kernel over 48 KB of dynamic shared memory must say so, once per device
+// (the attribute call costs microseconds of host time; per launch it
+// showed in the back-to-back time of short prefills).
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  static std::atomic<unsigned long long> done{0};  // bit d: set on device d
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
 constexpr float NEG_INF = -0.7f * FLT_MAX;   // finite mask sentinel (ref.NEG_INF)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -37,58 +51,100 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Load one (BK, HD) tile of K and V rows [k0, k0 + BK) for kv head `kvh`
-// of batch row `b` into shared memory as f32. Rows past `n_keys` are
-// zero-filled: their probability is exactly 0, and 0 * garbage could be NaN.
-template <typename T, int HD>
-__device__ __forceinline__ void load_kv_tile(const T* __restrict__ k, const T* __restrict__ v,
-                                             float (*Ks)[HD + 1], float (*Vs)[HD],
-                                             int b, int kvh, int k0, int n_keys, int KV) {
-  for (int idx = threadIdx.x; idx < BK * HD; idx += blockDim.x) {
-    const int j = idx / HD, d = idx % HD, key = k0 + j;
-    float kx = 0.f, vx = 0.f;
-    if (key < n_keys) {
-      const size_t off = ((size_t)(b * n_keys + key) * KV + kvh) * HD + d;
-      kx = to_f32(k[off]);
-      vx = to_f32(v[off]);
-    }
-    Ks[j][d] = kx;
-    Vs[j][d] = vx;
+// ---- 16-byte asynchronous copies (cp.async, sm_80+) ------------------------
+
+// Copy 16 bytes global -> shared without staging in registers; with
+// `ok` false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage rows [r0, r0 + ROWS) of a row-strided tensor (row r at src + r *
+// stride, HD elements each) into shared rows of LD elements, one 16-byte
+// cp.async a piece, spread over NT threads. Rows >= n are zero-filled, so
+// a product of a zero probability with them is 0, never NaN.
+template <typename T, int HD, int LD, int ROWS, int NT>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, size_t stride,
+                                           int r0, int n) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = HD / E;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * E;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * stride + c : src, ok);
   }
 }
 
-// One online-softmax step of a query row (q in shared memory, already
-// scaled) over the tile in Ks/Vs. `state` says per key what it is:
-//   valid  -> its dot product;
-//   masked -> NEG_INF (exp underflows to 0 once a valid key was seen; a
-//             first all-masked tile's p = 1 garbage is wiped by the later
-//             corr = exp(NEG_INF - m) = 0, which -inf would turn into NaN);
-//   absent (past the key count) -> -inf, contributing exactly 0.
+// ---- f32 math on staged rows ----------------------------------------------
+
+// Four consecutive elements of a shared row as f32 (8-byte aligned for bf16,
+// 16-byte aligned for f32).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float4 a, float4 b) {
+  acc.x = fmaf(a.x, b.x, acc.x);
+  acc.y = fmaf(a.y, b.y, acc.y);
+  acc.z = fmaf(a.z, b.z, acc.z);
+  acc.w = fmaf(a.w, b.w, acc.w);
+}
+
+__device__ __forceinline__ void axpy4(float4& acc, float p, float4 x) {
+  acc.x = fmaf(p, x.x, acc.x);
+  acc.y = fmaf(p, x.y, acc.y);
+  acc.z = fmaf(p, x.z, acc.z);
+  acc.w = fmaf(p, x.w, acc.w);
+}
+
+// dot(q, k) over HD: q an f32 shared row, k a staged key row. Four (f32) or
+// eight (bf16: one 16-byte load a step) independent partial sums, so the
+// HD-long chain becomes HD/4 or HD/8 steps deep.
 template <int HD>
-__device__ __forceinline__ void attend_tile(const float* __restrict__ qrow, float (*Ks)[HD + 1],
-                                            float (*Vs)[HD], bool exists, bool valid, float& m,
-                                            float& l, float (&acc)[HD / 32]) {
-  constexpr int DPL = HD / 32;
-  const int lane = threadIdx.x & 31;
-  float s = -INFINITY;
-  if (exists) {
-    float dot = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) dot = fmaf(qrow[d], Ks[lane][d], dot);
-    s = valid ? dot : NEG_INF;
-  }
-  const float m_new = fmaxf(m, warp_max(s));
-  const float p = expf(s - m_new);
-  const float corr = expf(m - m_new);
-  l = l * corr + warp_sum(p);
+__device__ __forceinline__ float dot_row(const float* __restrict__ q, const float* __restrict__ k) {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    float a = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < BK; ++j) a = fmaf(__shfl_sync(0xffffffffu, p, j), Vs[j][lane + 32 * i], a);
-    acc[i] = acc[i] * corr + a;
+  for (int d = 0; d < HD; d += 4) fma4(a, load4(q + d), load4(k + d));
+  return (a.x + a.y) + (a.z + a.w);
+}
+template <int HD>
+__device__ __forceinline__ float dot_row(const float* __restrict__ q,
+                                         const __nv_bfloat16* __restrict__ k) {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+#pragma unroll
+  for (int d = 0; d < HD; d += 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(k + d);
+    const float2 k0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 k1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    const float2 k2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.z));
+    const float2 k3 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.w));
+    fma4(a, load4(q + d), make_float4(k0.x, k0.y, k1.x, k1.y));
+    fma4(b, load4(q + d + 4), make_float4(k2.x, k2.y, k3.x, k3.y));
   }
-  m = m_new;
+  return ((a.x + b.x) + (a.y + b.y)) + ((a.z + b.z) + (a.w + b.w));
 }
 
 }  // namespace repro_attn

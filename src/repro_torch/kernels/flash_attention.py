@@ -61,6 +61,9 @@ def check_inputs(q, k, v, name: str) -> None:
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} kernel takes contiguous q/k/v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name} kernel takes 16-byte aligned q/k/v (its "
+                         f"tile copies are 16 bytes wide)")
     hd, KV = k.shape[-1], k.shape[-2]
     H = q.shape[-2]
     if q.shape[-1] != hd or hd not in HEAD_DIMS or H % KV:

@@ -6,6 +6,11 @@ and no JAX; skips without a card:
 
 Tolerances: top-k, top-1 and route rows exact and sims within 1e-6; attention 2e-5 in f32
 and 2e-2 (about one bf16 ulp at |x| < 4) in bf16.
+
+The attention cases cover the split-KV decode (several chunks, a window
+across a chunk boundary, cache_len per row, cache_len = 0, repeated calls
+on one workspace) and the flash paths (ragged Sq, kv_len, Sq < Sk), at
+hd 32/64/128 in f32 and bf16.
 """
 import numpy as np
 import pytest
@@ -129,3 +134,82 @@ def test_cuda_attention_matches_plain(rng, cuda, dtype, tol):
         got = da.decode_attention_cuda(q0, k, k, 30,
                                        window=window).float()
         assert (got - want).abs().max().item() <= tol
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(rng, cuda, dtype, *shapes):
+    return [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(
+        cuda, dtype) for sh in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,cls,H,KV,hd,window", [
+    (1, 308, [301], 32, 8, 128, 0),            # llama3-8b main shape
+    (1, 1032, [1024], 32, 8, 128, 0),          # several chunks
+    (1, 4104, [4096], 32, 8, 128, 0),
+    (1, 1032, [1024], 32, 8, 128, 100),        # window across a chunk
+    (8, 308, [1, 5, 17, 64, 100, 200, 299, 300], 32, 8, 128, 0),
+    (8, 132, [131, 3, 64, 132, 1, 77, 100, 16], 6, 6, 32, 0),
+    (8, 132, [131, 3, 64, 132, 1, 77, 100, 16], 4, 4, 32, 40),
+    (2, 500, [500, 250], 16, 1, 64, 0),        # G = 16
+    (3, 200, [200, 33, 129], 24, 4, 64, 50),   # G = 6
+    (2, 20, [20, 7], 8, 2, 32, 0),             # one chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_split_kv_matches_plain(rng, cuda, B, M, cls, H, KV, hd,
+                                            window, dtype):
+    q, k, v = _attn_inputs(rng, cuda, dtype, (B, H, hd), (B, M, KV, hd),
+                           (B, M, KV, hd))
+    cl = torch.tensor(cls, dtype=torch.int32, device=cuda)
+    want = da.decode_attention_plain(q, k, v, cl, window=window).float()
+    got = da.decode_attention_cuda(q, k, v, cl, window=window).float()
+    assert (got - want).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_empty_cache_and_reused_workspace(rng, cuda, dtype):
+    """cache_len = 0 gives zeros; calls of one shape share a workspace and
+    ticket buffer, so a second call with other lengths must be right too
+    (the tickets are back at zero)."""
+    q, k, v = _attn_inputs(rng, cuda, dtype, (2, 32, 128), (2, 1032, 8, 128),
+                           (2, 1032, 8, 128))
+    for cls in ([0, 1024], [1000, 0], [517, 1030], [1032, 1]):
+        cl = torch.tensor(cls, dtype=torch.int32, device=cuda)
+        got = da.decode_attention_cuda(q, k, v, cl).float()
+        want = da.decode_attention_plain(q, k, v, cl).float()
+        for b, n in enumerate(cls):
+            if n == 0:
+                assert torch.equal(got[b], torch.zeros_like(got[b]))
+            else:
+                assert (got[b] - want[b]).abs().max().item() <= \
+                    ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window,kv_len", [
+    (1, 17, 17, 32, 8, 128, True, 0, None),    # llama3-8b, ragged Sq
+    (1, 130, 130, 32, 8, 128, True, 0, None),
+    (1, 300, 300, 32, 8, 128, True, 0, None),
+    (1, 300, 300, 32, 8, 128, True, 64, None),
+    (2, 300, 300, 32, 8, 128, True, 0, [250, 300]),
+    (32, 16, 16, 4, 4, 32, False, 0, [10, 16] * 16),   # the embedder
+    (4, 40, 40, 4, 4, 32, False, 0, [0, 5, 40, 1]),    # kv_len 0: average
+    (8, 130, 130, 6, 6, 32, True, 0, None),            # rar-strong
+    (2, 10, 75, 8, 2, 64, True, 0, None),              # Sq < Sk
+    (2, 100, 100, 16, 1, 64, True, 30, None),          # G = 16
+    (1, 65, 65, 8, 8, 32, True, 0, None),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_matches_plain(rng, cuda, B, Sq, Sk, H, KV, hd, causal,
+                                  window, kv_len, dtype):
+    q, k, v = _attn_inputs(rng, cuda, dtype, (B, Sq, H, hd), (B, Sk, KV, hd),
+                           (B, Sk, KV, hd))
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                  device=cuda)
+    kw = dict(causal=causal, window=window, kv_len=kl)
+    want = fa.flash_attention_plain(q, k, v, **kw).float()
+    got = fa.flash_attention_cuda(q, k, v, **kw).float()
+    assert (got - want).abs().max().item() <= ATTN_TOL[dtype]
