@@ -9,12 +9,13 @@ Phases, each of which fails the run on any error:
   csrc`` with ``nvcc`` (one process per source, in parallel);
 * K: every kernel against its plain PyTorch version on the card at the
   main path's shapes (the RAR tiers, the embedder, llama3-8b, the guide
-  store at 4096 and 65536 rows, the IVF centroid planes), with its time,
-  the plain version's, a PyTorch library call's and the bound; at
-  llama3-8b also each attention kernel's and SDPA's device time a call
-  (``torch.profiler``) and time with the L2 flushed; and the split-KV
-  decode's own cases (caches of 1024 and 4096, cache_len per row, an
-  empty cache);
+  store at 4096 and 65536 rows and the IVF read's 256 gathered rows, the
+  IVF centroid planes), with its time, the plain version's, a PyTorch
+  library call's and the bound; for the store reads at k = 1 (top-1: the
+  full view), the IVF read and the attention kernels at llama3-8b also the
+  kernel's and the library call's device time a call (``torch.profiler``)
+  and time with the L2 flushed; and the split-KV decode's own cases
+  (caches of 1024 and 4096, cache_len per row, an empty cache);
 * R: ``MicrobatchRAR`` serving the ``rar_throughput`` workload (pool 64,
   2 passes, microbatch 8 and 32) on the card and on the CPU in the same
   process, with identical Outcome streams, FM calls and stores required
@@ -181,10 +182,10 @@ def phase_k(torch):
                  library_ms=lib_ms, bound_ms=b[0], bound_by=b[1], **extra))
 
     def card_times(tag, kernel, lib):
-        """The attention kernel's and SDPA's device time a call
+        """The kernel's and the library call's device time a call
         (profiler) and CUDA-event time with the L2 flushed."""
         k_dev, k_names = device_ms(torch, kernel, tag + "_kernel")
-        l_dev, l_names = device_ms(torch, lib, tag + "_sdpa")
+        l_dev, l_names = device_ms(torch, lib, tag + "_library")
         return dict(device_ms=k_dev, library_device_ms=l_dev,
                     cold_ms=cold_ms(torch, kernel),
                     library_cold_ms=cold_ms(torch, lib),
@@ -221,15 +222,54 @@ def phase_k(torch):
                 def lib():
                     s = torch.where(valid[None], qs @ memp.T, -2.0)
                     return torch.topk(s, k, dim=1)
+                def kernel():
+                    return mt.memory_topk_batch_padded_cuda(memp, qs, maskp,
+                                                            k)
                 b = bound(memp.numel() * 4 + maskp.numel() * 4 +
                           qs.numel() * 4 + B * k * 8,
                           2 * C * 384 * B, F32_FLOPS)
+                extra = (card_times(f"topk_C{C}_B{B}", kernel, lib)
+                         if k == 1 else {})
                 record("memory_topk", f"C={C} E=384 B={B} k={k}", err,
-                       time_ms(torch, lambda: mt.memory_topk_batch_padded_cuda(
-                           memp, qs, maskp, k)),
+                       time_ms(torch, kernel),
                        time_ms(torch, lambda: mt.memory_topk_batch_padded_plain(
                            memp, qs, maskp, k)),
-                       time_ms(torch, lib), b)
+                       time_ms(torch, lib), b, **extra)
+
+    # -- the IVF read's level 2: top-k over 4 probed clusters' rows -------
+    # (core/memory_ivf.py: B=1, k=4, 4 x 64 rows of the 65536-row,
+    # 1024-cluster store of Phase I2)
+    C, k = 256, 4
+    mem = rng.normal(size=(C, 384)).astype(np.float32)
+    mem /= np.linalg.norm(mem, axis=1, keepdims=True)
+    mem[C // 2] = mem[C // 3]
+    bits = np.full(C, mt.MASK_VALID, np.int32)
+    memp, maskp = mt.to_padded_layout(torch.from_numpy(mem),
+                                      torch.from_numpy(bits))
+    memp, maskp = memp.to(dev), maskp.to(dev)
+    q = torch.from_numpy(mem[C // 3][None]).to(dev)
+    cs, ci = mt.memory_topk_batch_padded_cuda(memp, q, maskp, k)
+    ps, pi = mt.memory_topk_batch_padded_plain(memp, q, maskp, k)
+    torch.cuda.synchronize()
+    if not torch.equal(ci, pi):
+        raise AssertionError("top-k rows differ on the IVF read")
+    err = (cs - ps).abs().max().item()
+    if err > TOPK_TOL:
+        raise AssertionError(f"top-k sims off by {err} on the IVF read")
+
+    def ivf_kernel():
+        return mt.memory_topk_batch_padded_cuda(memp, q, maskp, k)
+
+    def ivf_lib():
+        return torch.topk(q @ memp.T, k, dim=1)
+    record("memory_topk", f"C={C} E=384 B=1 k={k} (IVF read)", err,
+           time_ms(torch, ivf_kernel),
+           time_ms(torch, lambda: mt.memory_topk_batch_padded_plain(
+               memp, q, maskp, k)),
+           time_ms(torch, ivf_lib),
+           bound(memp.numel() * 4 + maskp.numel() * 4 + q.numel() * 4 +
+                 k * 8, 2 * C * 384, F32_FLOPS),
+           **card_times("topk_ivf_read", ivf_kernel, ivf_lib))
 
     # -- top-1 store read: C in {4096, 65536} x 384, both views ----------
     for C in (4096, 65536):
@@ -264,15 +304,18 @@ def phase_k(torch):
                 def lib():
                     return torch.argmax(torch.where(view[None], qs @ memp.T,
                                                     -2.0), dim=1)
+                def kernel():
+                    return mt.memory_top1_batch_padded_cuda(memp, qs, maskp,
+                                                            req)
                 b = bound(memp.numel() * 4 + maskp.numel() * 4 +
                           qs.numel() * 4 + B * 8, 2 * C * 384 * B, F32_FLOPS)
+                extra = (card_times(f"top1_C{C}_B{B}", kernel, lib)
+                         if req == mt.MASK_VALID else {})
                 record("memory_top1", f"C={C} E=384 B={B} required={req}",
-                       err,
-                       time_ms(torch, lambda: mt.memory_top1_batch_padded_cuda(
-                           memp, qs, maskp, req)),
+                       err, time_ms(torch, kernel),
                        time_ms(torch, lambda: mt.memory_top1_batch_padded_plain(
                            memp, qs, maskp, req)),
-                       time_ms(torch, lib), b)
+                       time_ms(torch, lib), b, **extra)
 
     # -- the compact-layout top-1 wrappers: layout copy, then the kernel --
     C, B = 4096, 8
@@ -933,8 +976,8 @@ def phase_l(torch, ops):
 # Trace: where the card's time goes (run on its own, not by main())
 # ---------------------------------------------------------------------------
 
-OUR_KERNELS = ("topk_block_kernel", "topk_merge_kernel", "top1_kernel",
-               "route_kernel", "flash_kernel", "decode_kernel")
+OUR_KERNELS = ("topk_scan_kernel", "top1_scan_kernel", "route_kernel",
+               "flash_kernel", "decode_kernel")
 
 
 def _trace_summary(torch, tag, fn, n_steps):

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("memory_topk.cu", "memory_top1.cu", "ivf_route.cu",
            "flash_attention.cu", "decode_attention.cu")
-HEADERS = ("attention_common.cuh",)
+HEADERS = ("attention_common.cuh", "store_scan.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,10 +34,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "memory_topk_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _I,
-                                 _P, _P, _P, _P, _P),
-    "memory_top1_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                                 _P),
+    "memory_topk_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _I, _P, _P, _P),
+    "memory_top1_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                 _P, _P),
     "ivf_route_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P),

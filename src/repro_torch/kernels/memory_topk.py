@@ -4,14 +4,18 @@ kernels' wrappers.
 
 * top-k replaces ``src/repro/kernels/memory_topk.py::
   memory_topk_batch_padded_pallas`` (and its B=1 wrapper
-  ``memory_topk_padded_pallas``); the kernel is ``csrc/memory_topk.cu``,
-  whose header says what bounds it on the H100 and how the two-pass design
-  replaces the TPU's sequential (k, B) accumulator;
+  ``memory_topk_padded_pallas``); the kernel is ``csrc/memory_topk.cu``;
 * top-1 replaces ``memory_top1_batch_padded_pallas`` and
-  ``memory_top1_padded_pallas``; the kernel is ``csrc/memory_top1.cu``
-  (one launch, an atomic 64-bit (sim, row) merge), and
-  :func:`memory_top1`/:func:`memory_top1_batch` are the compact-layout
+  ``memory_top1_padded_pallas``; the kernel is ``csrc/memory_top1.cu``,
+  and ``ops.memory_top1``/``memory_top1_batch`` are the compact-layout
   wrappers ``memory_top1_pallas``/``memory_top1_batch_pallas``.
+
+Both kernels are one launch around the scan core ``csrc/store_scan.cuh``,
+whose header says what bounds them on the H100 and how one pass over the
+store, with the queries on chip and the merge after a ticket in the same
+launch, replaces the TPU's sequential accumulator. Their wrappers keep the
+kernels' workspaces per (device, stream, shape): a read allocates only its
+outputs.
 
 Layout contract (identical to the JAX package, so row indices agree):
 
@@ -213,13 +217,17 @@ def memory_topk_batch_padded_plain(mem, qs, mask, k: int,
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_ROWS_PER_CTA = 128      # csrc/memory_topk.cu ROWS
+#: the store kernels' workspaces, each allocated once per (kernel, device,
+#: stream, shape): the state words (B keys, then the ticket), which every
+#: launch leaves at zero, and top-k's tile lists, room for B x k entries a
+#: tile of the finest tiling the kernel uses (32 rows) and 4 spare (the
+#: kernel reads them back 16 bytes at a time)
+_states: dict = {}
+_lists: dict = {}
+_FINEST_TILE = 32
 
 
-def check_cuda_inputs(mem, qs, mask, name: str) -> torch.Tensor:
-    """Validate a padded store (or centroid plane) read for a CUDA kernel:
-    mem (Cp, Ep) f32 and mask (Cp, 1) int32, contiguous, qs (B, E) with
-    E <= Ep, all on one card. Returns the (B, Ep) f32 padded queries."""
+def _check_cuda(mem, qs, mask, name: str) -> None:
     if mem.device.type != "cuda" or qs.device != mem.device or \
             mask.device != mem.device:
         raise ValueError(f"{name} kernel takes CUDA tensors on one device")
@@ -233,29 +241,69 @@ def check_cuda_inputs(mem, qs, mask, name: str) -> torch.Tensor:
             Ep % 4 or qs.shape[0] < 1:
         raise ValueError(f"bad shapes mem {tuple(mem.shape)}, qs "
                          f"{tuple(qs.shape)}, mask {tuple(mask.shape)}")
-    return _pad_queries(qs, Ep)
+
+
+def check_cuda_inputs(mem, qs, mask, name: str) -> torch.Tensor:
+    """Validate a padded store (or centroid plane) read for a CUDA kernel:
+    mem (Cp, Ep) f32 and mask (Cp, 1) int32, contiguous, qs (B, E) with
+    E <= Ep, all on one card. Returns the (B, Ep) f32 padded queries."""
+    _check_cuda(mem, qs, mask, name)
+    return _pad_queries(qs, mem.shape[1])
+
+
+def _store_queries(mem, qs, mask, name: str) -> torch.Tensor:
+    """Validate a store read for the scan kernels and return the queries
+    as the kernel reads them: ``qs`` itself when it is contiguous f32 rows
+    of a multiple of 4 lanes on a 16-byte boundary (no device op), else
+    padded to Ep."""
+    _check_cuda(mem, qs, mask, name)
+    if qs.dtype == torch.float32 and qs.is_contiguous() and \
+            qs.shape[1] % 4 == 0 and qs.data_ptr() % 16 == 0:
+        return qs
+    return _pad_queries(qs, mem.shape[1])
+
+
+def _state(kind: str, dev, stream: int, B: int) -> torch.Tensor:
+    key = (kind, dev, stream, B)
+    if key not in _states:
+        _states[key] = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+    return _states[key]
+
+
+def _tile_lists(dev, stream: int, B: int, cp: int, k: int):
+    key = (dev, stream, B, cp, k)
+    if key not in _lists:
+        n = B * -(-cp // _FINEST_TILE) * k + 4
+        _lists[key] = (torch.empty(n, dtype=torch.float32, device=dev),
+                       torch.empty(n, dtype=torch.int32, device=dev))
+    return _lists[key]
 
 
 def memory_topk_batch_padded_cuda(mem, qs, mask, k: int,
                                   required: int = MASK_VALID):
     """Launch ``csrc/memory_topk.cu`` on CUDA tensors: mem (Cp, Ep) f32,
     qs (B, E) f32, mask (Cp, 1) int32 -> (sims (B, k) f32, idx (B, k)
-    int32). Only the (B, E) query block is padded to Ep."""
+    int32). One launch; the outputs are the only allocations."""
     global launches
-    qp = check_cuda_inputs(mem, qs, mask, "memory_topk")
+    q = _store_queries(mem, qs, mask, "memory_topk")
     Cp, Ep = mem.shape
     B = qs.shape[0]
     check_k(k, Cp)
     dev = mem.device
-    nblk = -(-Cp // _ROWS_PER_CTA)
-    cand_s = torch.empty((B, nblk, k), dtype=torch.float32, device=dev)
-    cand_r = torch.empty((B, nblk, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = _state("topk", dev, stream, B)
+    cand_s = cand_r = None
+    if k > 1:
+        cand_s, cand_r = _tile_lists(dev, stream, B, Cp, k)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((B, k), dtype=torch.int32, device=dev)
     err = _build.lib().memory_topk_batch_padded(
-        mem.data_ptr(), qp.data_ptr(), mask.data_ptr(), Cp, Ep, B, k,
-        required, cand_s.data_ptr(), cand_r.data_ptr(), out_s.data_ptr(),
-        out_r.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        mem.data_ptr(), q.data_ptr(), mask.data_ptr(), Cp, Ep, q.shape[1], B,
+        k, required, state.data_ptr(),
+        None if cand_s is None else cand_s.data_ptr(),
+        None if cand_r is None else cand_r.data_ptr(),
+        0 if cand_s is None else cand_s.numel(), out_s.data_ptr(),
+        out_r.data_ptr(), stream)
     _build.check(err, "memory_topk_batch_padded")
     launches += 1
     return out_s, out_r
@@ -264,19 +312,21 @@ def memory_topk_batch_padded_cuda(mem, qs, mask, k: int,
 def memory_top1_batch_padded_cuda(mem, qs, mask, required: int = MASK_VALID):
     """Launch ``csrc/memory_top1.cu`` on CUDA tensors: mem (Cp, Ep) f32,
     qs (B, E) f32, mask (Cp, 1) int32 -> (sims (B,) f32, idx (B,) int32).
-    One launch for the B queries (B = 1 is the single-query read)."""
+    One launch for the B queries (B = 1 is the single-query read); any Cp,
+    so a compact (C, E) store with E % 4 == 0 goes in as it is."""
     global top1_launches
-    qp = check_cuda_inputs(mem, qs, mask, "memory_top1")
+    q = _store_queries(mem, qs, mask, "memory_top1")
     Cp, Ep = mem.shape
     B = qs.shape[0]
     dev = mem.device
-    scratch = torch.empty((B + 1,), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = _state("top1", dev, stream, B)
     out_s = torch.empty((B,), dtype=torch.float32, device=dev)
     out_r = torch.empty((B,), dtype=torch.int32, device=dev)
     err = _build.lib().memory_top1_batch_padded(
-        mem.data_ptr(), qp.data_ptr(), mask.data_ptr(), Cp, Ep, B, required,
-        scratch.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        mem.data_ptr(), q.data_ptr(), mask.data_ptr(), Cp, Ep, q.shape[1], B,
+        required, state.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
+        stream)
     _build.check(err, "memory_top1_batch_padded")
     top1_launches += 1
     return out_s, out_r

@@ -63,16 +63,28 @@ def memory_top1_padded(mem, q, mask, required: int = MASK_VALID):
     return _mt.memory_top1_padded_plain(mem, q, mask, required)
 
 
+def _compact_store(mem, mask):
+    """The compact (C, E) store and (C,) mask as the top-1 kernels read
+    them. On the card a contiguous f32 store with E % 4 == 0 goes in as it
+    is (the scan takes any row count; only the mask is widened to a (C, 1)
+    int32 plane, where a bool mask's 1 is MASK_VALID); anything else takes
+    the padded layout (one O(C * E) copy: not a serving path)."""
+    if _on_cuda(mem) and mem.dtype == torch.float32 and \
+            mem.is_contiguous() and mem.shape[1] % 4 == 0 and \
+            mem.data_ptr() % 16 == 0:
+        return mem, mask.to(torch.int32).reshape(-1, 1)
+    return _mt.to_padded_layout(mem, mask)
+
+
 def memory_top1(mem, q, mask):
-    """Compact layout: mem (C, E), q (E,), mask (C,) bool -> (sim, idx),
-    through the padded layout (one O(C * E) copy: not a serving path)."""
-    memp, maskp = _mt.to_padded_layout(mem, mask)
+    """Compact layout: mem (C, E), q (E,), mask (C,) bool -> (sim, idx)."""
+    memp, maskp = _compact_store(mem, mask)
     return memory_top1_padded(memp, q, maskp)
 
 
 def memory_top1_batch(mem, qs, mask):
     """Compact layout: mem (C, E), qs (B, E), mask (C,) bool."""
-    memp, maskp = _mt.to_padded_layout(mem, mask)
+    memp, maskp = _compact_store(mem, mask)
     return memory_top1_batch_padded(memp, qs, maskp)
 
 

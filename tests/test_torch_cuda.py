@@ -7,11 +7,20 @@ and no JAX; skips without a card:
 Tolerances: top-k, top-1 and route rows exact and sims within 1e-6; attention 2e-5 in f32
 and 2e-2 (about one bf16 ulp at |x| < 4) in bf16.
 
+The store cases cover the scan's tiling edges (C of 136, 1000, 4096 and
+65536 rows, B of 1 to 64, k up to 128), ties across tiles, CTAs and a
+persistent CTA's tiles, empty views, the workspaces kept between calls,
+and the compact top-1 store read as it is. In the tiling-edge cases two
+rows whose plain sims lie within 1e-6 of each other may come in either
+order (see ``_same``); exact ties still go to the lowest row.
+
 The attention cases cover the split-KV decode (several chunks, a window
 across a chunk boundary, cache_len per row, cache_len = 0, repeated calls
 on one workspace) and the flash paths (ragged Sq, kv_len, Sq < Sk), at
 hd 32/64/128 in f32 and bf16.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +29,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import memory_ivf as tivf
 from repro_torch.kernels import memory_topk as tmt
+from repro_torch.kernels import ops
 
 
 def _store(rng, C, E):
@@ -88,6 +98,139 @@ def test_cuda_top1_matches_plain(rng, cuda, C, B, required):
     cs, ci = tmt.memory_top1_batch_padded_cuda(memp.to(cuda), qs.to(cuda),
                                                zero, required)
     assert (cs == -2.0).all() and (ci == 0).all()
+
+
+# -- the store scan's tiling edges (csrc/store_scan.cuh) ---------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_store(C):
+    """A padded store whose ties cross tiles and CTAs: rows C//3, C//2 and
+    C-1 are equal, and past the 132 CTAs' first tiles (rows 33792 on) row
+    33799 repeats row 7, a tie inside one persistent CTA's two tiles. Rows
+    1 and 2 are +0.0 and -0.0."""
+    rng = np.random.default_rng(C)
+    mem, bits = _store(rng, C, 384)
+    if C > 132 * 256 + 7:
+        mem[132 * 256 + 7] = mem[7]
+        bits[132 * 256 + 7] = bits[7] = tmt.MASK_VALID
+    return tmt.to_padded_layout(torch.from_numpy(mem), torch.from_numpy(bits))
+
+
+def _scan_queries(C, B):
+    memp = _scan_store(C)[0]
+    qs = _queries(np.random.default_rng(C + B), B, 384)
+    qs[0] = memp[C // 3, :384].numpy()
+    if B > 1:
+        qs[1] = memp[7, :384].numpy()
+    return torch.from_numpy(qs)
+
+
+def _same(got, want, sims=None):
+    """Sims within 1e-6 and rows exact. Where ``sims`` (the plain version's
+    (B, Cp) masked sims) is given, rows may differ inside a near-tie only:
+    the kernel sums in another order than the plain version, so two rows
+    whose sims are 1 ulp apart may come in either order (k = 128 lists of
+    a 65536-row store hold such pairs). Then every returned row must be
+    distinct and carry, by the plain sims, the sim returned for it."""
+    gs, gr = got[0].cpu(), got[1].cpu()
+    np.testing.assert_allclose(gs.numpy(), want[0].cpu().numpy(), atol=1e-6,
+                               rtol=0)
+    if sims is None or torch.equal(gr, want[1].cpu()):
+        np.testing.assert_array_equal(gr.numpy(), want[1].cpu().numpy())
+        return
+    rows = gr.reshape(gr.shape[0], -1).long()
+    assert all(len(set(r.tolist())) == len(r) for r in rows)
+    np.testing.assert_allclose(sims.cpu().gather(1, rows).numpy(),
+                               gs.reshape(rows.shape).numpy(), atol=1e-6,
+                               rtol=0)
+    vals = gs.reshape(rows.shape)
+    tied = vals[:, 1:] == vals[:, :-1]          # equal sims: lowest row first
+    assert (rows[:, 1:][tied] > rows[:, :-1][tied]).all()
+
+
+def _plain_sims(memp, qs, maskp, required=tmt.MASK_VALID):
+    return tmt._masked(tmt._dots(memp, qs), maskp, required).T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 16, 128])
+@pytest.mark.parametrize("B", [1, 8, 32, 33, 64])
+@pytest.mark.parametrize("C", [136, 1000, 4096, 65536])
+def test_cuda_topk_scan_edges(cuda, C, B, k):
+    memp, maskp = (t.to(cuda) for t in _scan_store(C))
+    qs = _scan_queries(C, B).to(cuda)
+    _same(tmt.memory_topk_batch_padded_cuda(memp, qs, maskp, k),
+          tmt.memory_topk_batch_padded_plain(memp, qs, maskp, k),
+          _plain_sims(memp, qs, maskp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 32, 33, 64])
+@pytest.mark.parametrize("C", [136, 1000, 4096, 65536])
+def test_cuda_top1_scan_edges(cuda, C, B):
+    memp, maskp = (t.to(cuda) for t in _scan_store(C))
+    qs = _scan_queries(C, B).to(cuda)
+    for req in (tmt.MASK_VALID, tmt.MASK_VALID | tmt.MASK_GUIDE):
+        _same(tmt.memory_top1_batch_padded_cuda(memp, qs, maskp, req),
+              tmt.memory_top1_batch_padded_plain(memp, qs, maskp, req),
+              _plain_sims(memp, qs, maskp, req))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [136, 4096, 65536])
+def test_cuda_scan_empty_view(cuda, C):
+    """No row carries the required bits: every row scores -2.0, so top-k
+    gives rows 0..k-1 and top-1 (-2.0, 0)."""
+    memp = _scan_store(C)[0].to(cuda)
+    maskp = torch.zeros((memp.shape[0], 1), dtype=torch.int32, device=cuda)
+    qs = _scan_queries(C, 8).to(cuda)
+    for k in (1, 4, 16):
+        s, r = tmt.memory_topk_batch_padded_cuda(memp, qs, maskp, k)
+        assert (s == -2.0).all()
+        assert torch.equal(r.cpu(), torch.arange(k, dtype=torch.int32)
+                           .expand(8, k))
+    s, r = tmt.memory_top1_batch_padded_cuda(memp, qs, maskp)
+    assert (s == -2.0).all() and (r == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_scan_workspaces_between_calls(cuda):
+    """The wrappers keep one state (keys + ticket) per kernel, stream and B,
+    and top-k's tile lists per shape; each launch must leave them ready for
+    the next: repeated calls of one shape, shapes changing between calls,
+    and top-1 and top-k reads interleaved on one stream."""
+    calls = [(4096, 32, 1), (4096, 32, 1), (4096, 32, 4), (65536, 32, 1),
+             (4096, 8, 8), (4096, 32, 1), (136, 32, 16), (65536, 32, 4),
+             (4096, 32, 4), (65536, 1, 1), (65536, 1, 4)]
+    for C, B, k in calls * 2:
+        memp, maskp = (t.to(cuda) for t in _scan_store(C))
+        qs = _scan_queries(C, B).to(cuda)
+        _same(tmt.memory_top1_batch_padded_cuda(memp, qs, maskp),
+              tmt.memory_top1_batch_padded_plain(memp, qs, maskp))
+        _same(tmt.memory_topk_batch_padded_cuda(memp, qs, maskp, k),
+              tmt.memory_topk_batch_padded_plain(memp, qs, maskp, k))
+        _same(tmt.memory_top1_batch_padded_cuda(memp, qs[:1], maskp,
+                                                tmt.MASK_GUIDE),
+              tmt.memory_top1_batch_padded_plain(memp, qs[:1], maskp,
+                                                 tmt.MASK_GUIDE))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,E", [(4096, 384), (1000, 384), (77, 128),
+                                 (300, 100)])
+def test_cuda_compact_top1_reads_the_store_as_is(cuda, C, E):
+    """ops.memory_top1*: a contiguous f32 (C, E) store with E % 4 == 0 goes
+    to the kernel uncopied, any C; rows and sims as the plain version."""
+    rng = np.random.default_rng(C)
+    mem = torch.from_numpy(_queries(rng, C, E)).to(cuda)
+    valid = torch.from_numpy(rng.random(C) < 0.7).to(cuda)
+    qs = mem[C // 2:C // 2 + 8].clone()
+    _same(ops.memory_top1_batch(mem, qs, valid),
+          tmt.memory_top1_batch_plain(mem, qs, valid))
+    s, r = ops.memory_top1(mem, qs[3], valid)
+    ps, pr = tmt.memory_top1_plain(mem, qs[3], valid)
+    _same((s[None], r[None]), (ps[None], pr[None]))
 
 
 @pytest.mark.cuda
