@@ -5,17 +5,19 @@
 
 Phases, each of which fails the run on any error:
 
-* build: compiles the five CUDA kernels from ``src/repro_torch/kernels/
+* build: compiles the six CUDA kernels from ``src/repro_torch/kernels/
   csrc`` with ``nvcc`` (one process per source, in parallel);
 * K: every kernel against its plain PyTorch version on the card at the
   main path's shapes (the RAR tiers, the embedder, llama3-8b, the guide
-  store at 4096 and 65536 rows and the IVF read's 256 gathered rows, the
-  IVF centroid planes), with its time, the plain version's, a PyTorch
-  library call's and the bound; for the store reads at k = 1 (top-1: the
-  full view), the IVF read and the attention kernels at llama3-8b also the
-  kernel's and the library call's device time a call (``torch.profiler``)
-  and time with the L2 flushed; and the split-KV decode's own cases
-  (caches of 1024 and 4096, cache_len per row, an empty cache);
+  store at 4096 and 65536 rows and the single-query IVF read's 256
+  gathered rows, the IVF centroid planes, the IVF candidate read on Phase
+  I2's store), with its time, the plain version's, a PyTorch library
+  call's and the bound; for the store reads at k = 1 (top-1: the full
+  view), the IVF route and candidate read and the attention kernels at
+  llama3-8b also the kernel's and the library call's device time a call
+  (``torch.profiler``) and time with the L2 flushed; and the split-KV
+  decode's own cases (caches of 1024 and 4096, cache_len per row, an
+  empty cache);
 * R: ``MicrobatchRAR`` serving the ``rar_throughput`` workload (pool 64,
   2 passes, microbatch 8 and 32) on the card and on the CPU in the same
   process, with identical Outcome streams, FM calls and stores required
@@ -24,8 +26,9 @@ Phases, each of which fails the run on any error:
   probed in full (it must give R1's Outcome streams: 192 strong calls);
   I2 serves it against a 65536 x 384 store of clustered rows with 1024
   clusters and 4 probes, and measures recall@4 and the IVF read against
-  the exact scan; I3 holds ``memory.query``/``query_batch`` (the top-1
-  kernel) on that store. Card and CPU must agree in every step;
+  the exact scan (CUDA-event and device time); I3 holds ``memory.query``/
+  ``query_batch`` (the top-1 kernel) on that store. Card and CPU must
+  agree in every step;
 * L: ``ServingEngine.generate_bucketed`` at the full width of llama3-8b
   (bf16, random weights from a seed) serving 8 mixed-length requests.
 
@@ -92,14 +95,16 @@ def device_events(prof, path):
             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-def device_ms(torch, fn, tag, iters=20):
+def device_ms(torch, fn, tag, iters=20, tries=5):
     """Device time of one call of ``fn`` (all its kernels, copies and
     memsets) from ``torch.profiler`` over ``iters`` calls after a warm-up,
-    and the kernel names seen."""
+    and the kernel names seen; (None, []) if no profile of ``tries``
+    caught device activity (CUPTI now and then delivers none), which is
+    logged as not measured."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profile that caught no device activity is retried
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -108,8 +113,11 @@ def device_ms(torch, fn, tag, iters=20):
                                f"k_{tag}.json")
         if events:
             break
+        time.sleep(0.2)
     else:
-        raise RuntimeError(f"torch.profiler saw no device activity ({tag})")
+        log(f"device time not measured ({tag}): torch.profiler saw no "
+            f"device activity in {tries} profiles")
+        return None, []
     names = sorted({e["name"].removeprefix("void ")[:40] for e in events})
     return sum(e["dur"] for e in events) / 1e3 / iters, names
 
@@ -370,16 +378,74 @@ def phase_k(torch):
                 def lib():
                     s = torch.where(live[:, None], centp @ qs.T, -2.0)
                     return torch.topk(s.T, n_probe, dim=1)
+
+                def kernel():
+                    return ivf.ivf_route_batch_padded_cuda(centp, qs, cmaskp,
+                                                           n_probe)
                 b = bound(centp.numel() * 4 + cmaskp.numel() * 4 +
                           qs.numel() * 4 + B * n_probe * 8,
                           2 * P * 384 * B, F32_FLOPS)
                 record("ivf_route", f"P={P} E=384 B={B} n_probe={n_probe}",
-                       err,
-                       time_ms(torch, lambda: ivf.ivf_route_batch_padded_cuda(
-                           centp, qs, cmaskp, n_probe)),
+                       err, time_ms(torch, kernel),
                        time_ms(torch, lambda: ivf.ivf_route_batch_padded_plain(
                            centp, qs, cmaskp, n_probe)),
-                       time_ms(torch, lib), b)
+                       time_ms(torch, lib), b,
+                       **card_times(f"route_P{P}_B{B}_n{n_probe}", kernel,
+                                    lib))
+
+    # -- IVF candidate read: Phase I2's indexed store, its routes ---------
+    from repro_torch.core.memory_ivf import wrap_store
+    cfg, full_store, i2_rng, protos, _ = i2_store(torch)
+    store = wrap_store(full_store(dev), cfg)
+    store._refresh()
+    (cent, cmask, cidmap), st = store._plane, store.store
+    members, assign, emb = store._members_dev, store._assign_dev, st.emb
+    maskp, C, Ep = st.mask, store.capacity, emb.shape[1]
+    n_probe, M = store.probes, store.bucket_cap
+    for B in (1, 8, 32):
+        qs = torch.from_numpy(near(i2_rng, protos, B)).to(dev)
+        scores, cids = ops.ivf_route_batch_padded(cent, qs, cmask, n_probe)
+        slots, ok = ivf.gather_candidates(members, assign, scores,
+                                          ivf.global_cids(cids, cidmap))
+        kept = int(ok.sum())
+        for k in (1, 4):
+            args = (scores, cids, cidmap, members, assign, emb, maskp,
+                    st.hard, st.added_at, st.guide, qs, k, mt.MASK_VALID)
+            cs, cm = ivf.ivf_scan_batch_cuda(*args)
+            ps, pm = ivf.ivf_scan_batch_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(cm, pm):
+                raise AssertionError(f"ivf_scan rows or meta differ at B={B} "
+                                     f"k={k}")
+            err = (cs - ps).abs().max().item()
+            if err > TOPK_TOL:
+                raise AssertionError(f"ivf_scan sims off by {err}")
+
+            def kernel():
+                return ivf.ivf_scan_batch_cuda(*args)
+
+            def lib():
+                """The eager path: gather the candidates' rows, one batched
+                product, torch.topk, then the winners' meta."""
+                s, o = ivf.gather_candidates(members, assign, scores,
+                                             ivf.global_cids(cids, cidmap))
+                rows = emb[s.long().clamp(0, C - 1)]
+                sims = torch.bmm(rows, F.pad(qs, (0, Ep - qs.shape[1]))
+                                 [:, :, None])[..., 0]
+                top, at = torch.topk(torch.where(o, sims, -2.0), k, dim=1)
+                idx = s.gather(1, at).clamp(0, C - 1)
+                return top, mt.pack_meta_parts(idx, maskp[idx.long(), 0],
+                                               st.hard, st.added_at, st.guide)
+            G = st.guide.shape[1]
+            b = bound(kept * Ep * 4 + B * n_probe * M * 12 + B * n_probe * 8 +
+                      qs.numel() * 4 + B * k * (4 + 4 * (4 + G)),
+                      2 * kept * Ep, F32_FLOPS)
+            record("ivf_scan", f"C={C} P={store.clusters} n_probe={n_probe} "
+                   f"M={M} B={B} k={k}", err, time_ms(torch, kernel),
+                   time_ms(torch, lambda: ivf.ivf_scan_batch_plain(*args)),
+                   time_ms(torch, lib), b, kept=kept,
+                   **card_times(f"ivf_scan_B{B}_k{k}", kernel, lib))
+    del store, st, emb, members, assign
 
     # -- attention at the tiers', the embedder's and llama3-8b's shapes ---
     def attn_case(tag, B, Sq, H, KV, hd, dtype, window=0, causal=True,
@@ -785,12 +851,50 @@ def near(rng, protos, n):
     return rows.astype(np.float32)
 
 
-def phase_i(torch, ops, tiers, r_results):
+def i2_store(torch):
+    """Phase I2's setting: the RAR config with the IVF plane on a
+    65536 x 384 store, a function that builds that store full of clustered
+    rows on a device, the rng (after the store's draws) and prototypes for
+    the queries, and the rows."""
     import numpy as np
 
     from repro_torch.configs import rar_system
     from repro_torch.core import memory as mem
     from repro_torch.kernels.memory_topk import MASK_GUIDE, MASK_VALID
+
+    C, clusters, probes = IVF_STORE
+    rng = np.random.default_rng(SEEDS["store"])
+    protos = rng.normal(size=(clusters, 384)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
+    rows = near(rng, protos, C)
+    # half the rows carry a guide (an empty block), so the guides-only
+    # view of I3 is not empty; no workload query comes near these rows
+    bits = MASK_VALID + MASK_GUIDE * (rng.random(C) < 0.5)
+    base = rar_system.make_rar_config()
+    mcfg = mem.MemoryConfig(capacity=C, embed_dim=384,
+                            guide_len=base.memory.guide_len)
+    cfg = dataclasses.replace(base, memory=mcfg, retrieval_clusters=clusters,
+                              retrieval_probes=probes)
+
+    def full_store(device):
+        st = mem.init_memory(mcfg, device=device)
+        st.emb[:C, :384] = torch.from_numpy(rows).to(device)
+        st.mask[:C, 0] = torch.from_numpy(bits.astype(np.int32)).to(device)
+        st.ptr = C
+        return st
+
+    log(f"I2 store: {C} x 384 clustered unit rows ({clusters} prototypes, "
+        f"noise 0.05, seed {SEEDS['store']}, {int((bits > 1).sum())} with "
+        f"a guide); IVF {clusters} clusters, {probes} probes")
+    return cfg, full_store, rng, protos, rows
+
+
+def phase_i(torch, ops, tiers, r_results):
+    import numpy as np
+
+    from repro_torch.configs import rar_system
+    from repro_torch.core import memory as mem
+    from repro_torch.kernels.memory_topk import MASK_VALID
 
     cuda, cpu = torch.device(DEV), torch.device("cpu")
     vocab, prompts, greqs, embs = workload()
@@ -829,29 +933,7 @@ def phase_i(torch, ops, tiers, r_results):
 
     # I2: the size the plane exists for, a full store of clustered rows
     C, clusters, probes = IVF_STORE
-    rng = np.random.default_rng(SEEDS["store"])
-    protos = rng.normal(size=(clusters, 384)).astype(np.float32)
-    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
-    rows = near(rng, protos, C)
-    # half the rows carry a guide (an empty block), so the guides-only
-    # view of I3 is not empty; no workload query comes near these rows
-    bits = MASK_VALID + MASK_GUIDE * (rng.random(C) < 0.5)
-    base = rar_system.make_rar_config()
-    mcfg = mem.MemoryConfig(capacity=C, embed_dim=384,
-                            guide_len=base.memory.guide_len)
-    cfg = dataclasses.replace(base, memory=mcfg, retrieval_clusters=clusters,
-                              retrieval_probes=probes)
-
-    def full_store(device):
-        st = mem.init_memory(mcfg, device=device)
-        st.emb[:C, :384] = torch.from_numpy(rows).to(device)
-        st.mask[:C, 0] = torch.from_numpy(bits.astype(np.int32)).to(device)
-        st.ptr = C
-        return st
-
-    log(f"I2 store: {C} x 384 clustered unit rows ({clusters} prototypes, "
-        f"noise 0.05, seed {SEEDS['store']}, {int((bits > 1).sum())} with "
-        f"a guide); IVF {clusters} clusters, {probes} probes")
+    cfg, full_store, rng, protos, rows = i2_store(torch)
     served = {}
     for mb in MICROBATCHES:
         c = serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab,
@@ -899,7 +981,7 @@ def phase_i(torch, ops, tiers, r_results):
     log_launches(ops, seen, "I3", 1)
     counts = ops.launch_counts()
     log(f"I launches on the card: {counts}")
-    for k in ("ivf_route", "memory_top1"):
+    for k in ("ivf_route", "ivf_scan", "memory_top1"):
         if counts[k] == 0:
             raise AssertionError(f"Phase I never launched {k}")
 
@@ -912,14 +994,38 @@ def phase_i(torch, ops, tiers, r_results):
     recall = float(np.mean([len(set(got[i]) & set(want[i])) / 4
                             for i in range(len(qr))]))
     q32 = torch.from_numpy(qr[:32]).to(cuda)
-    ivf_ms = time_ms(torch, lambda: ivf.query_topk_batch(q32, 4))
-    exact_ms = time_ms(torch, lambda: ivf.exact_query_topk_batch(q32, 4))
+    cent, cmask, cidmap = ivf._plane
+    scores, cids = ops.ivf_route_batch_padded(cent, q32, cmask, ivf.probes)
+
+    def read():
+        return ivf.query_topk_batch(q32, 4)
+
+    def exact():
+        return ivf.exact_query_topk_batch(q32, 4)
+    ivf_ms, exact_ms = time_ms(torch, read), time_ms(torch, exact)
+    dev_ms = {
+        "route": device_ms(torch, lambda: ops.ivf_route_batch_padded(
+            cent, q32, cmask, ivf.probes), "i2_route")[0],
+        "scan": device_ms(torch, lambda: ops.ivf_scan_batch(
+            scores, cids, cidmap, ivf._members_dev, ivf._assign_dev,
+            ivf.store.emb, ivf.store.mask, ivf.store.hard,
+            ivf.store.added_at, ivf.store.guide, q32, 4, MASK_VALID),
+            "i2_scan")[0],
+        "read": device_ms(torch, read, "i2_read")[0],
+        "exact": device_ms(torch, exact, "i2_exact")[0]}
+    shown = {k: "not measured" if v is None else f"{v:.4f} ms"
+             for k, v in dev_ms.items()}
     log(f"I2 recall@4 of the IVF read against the exact scan over "
         f"{len(qr)} queries on the card: {recall:.4f}; query_topk_batch "
         f"B=32 k=4 (CUDA events): IVF {ivf_ms:.4f} ms, exact {exact_ms:.4f}"
-        f" ms ({exact_ms / ivf_ms:.2f}x)")
+        f" ms ({exact_ms / ivf_ms:.2f}x); device time a read: route "
+        f"{shown['route']} + scan {shown['scan']}, whole IVF read "
+        f"{shown['read']}, exact {shown['exact']}")
+    if ivf_ms >= exact_ms or None not in (dev_ms["read"], dev_ms["exact"]) \
+            and dev_ms["read"] >= dev_ms["exact"]:
+        log("I2: the IVF read is NOT faster than the exact scan")
     results["I2_ivf"] = dict(recall_at_4=recall, ivf_ms=ivf_ms,
-                             exact_ms=exact_ms)
+                             exact_ms=exact_ms, device_ms=dev_ms)
     return counts, results
 
 
@@ -977,7 +1083,7 @@ def phase_l(torch, ops):
 # ---------------------------------------------------------------------------
 
 OUR_KERNELS = ("topk_scan_kernel", "top1_scan_kernel", "route_kernel",
-               "flash_kernel", "decode_kernel")
+               "ivf_scan_kernel", "flash_kernel", "decode_kernel")
 
 
 def _trace_summary(torch, tag, fn, n_steps):
@@ -1019,7 +1125,7 @@ def _trace_summary(torch, tag, fn, n_steps):
         f"profiled, over {n_steps} steps; card busy {busy / 1e3:.3f} ms "
         f"({100 * busy / 1e3 / plain_ms:.1f}% of the unprofiled wall); "
         f"{len(events)} device ops ({len(events) / n_steps:.1f} per step)")
-    for d, top in ((by_kind, 4), (by_name, 8)):
+    for d, top in ((by_kind, 4), (by_name, 12)):
         for key, (n, us) in sorted(d.items(), key=lambda kv: -kv[1][1])[:top]:
             log(f"T {tag}:   {us / 1e3:9.3f} ms  {n:6d} x  {key}")
     for key, (n, us) in sorted(by_name.items()):
@@ -1028,11 +1134,14 @@ def _trace_summary(torch, tag, fn, n_steps):
                 f"({us / n:.2f} us each)  {key}")
 
 
-def trace() -> int:
-    """Profile the two main paths once each (after a warm-up run): the
-    RAR microbatch path at microbatch 8 and 32 (hash embeddings) and
-    llama3-8b serving one 130-token request with ``max_new`` 8, whose
-    prefill and decode steps are also timed apart on the host clock::
+def trace(parts=("rar", "ivf", "llama")) -> int:
+    """Profile the main paths once each (after a warm-up run): ``rar``,
+    the RAR microbatch path at microbatch 8 and 32 (hash embeddings);
+    ``ivf``, the same serving against Phase I2's IVF store at microbatch 8
+    and 32, and the IVF read alone (B=32, k=4: 20 reads) beside the exact
+    scan's; ``llama``, llama3-8b serving one 130-token request with
+    ``max_new`` 8, whose prefill and decode steps are also timed apart on
+    the host clock::
 
         python3 -c "import chip_smoke; chip_smoke.trace()"
     """
@@ -1051,11 +1160,35 @@ def trace() -> int:
     vocab, prompts, greqs, embs = workload()
     tiers = (init_params(rar_system.WEAK, SEEDS["weak"], device=cuda),
              init_params(rar_system.STRONG, SEEDS["strong"], device=cuda))
-    for mb in MICROBATCHES:
+    for mb in MICROBATCHES if "rar" in parts else ():
         def run():
             serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab)
         run()
         _trace_summary(torch, f"rar_mb{mb}", run, PASSES * POOL // mb)
+    if "ivf" in parts:
+        from repro_torch.core.memory_ivf import wrap_store
+        cfg, full_store, rng, protos, _ = i2_store(torch)
+        for mb in MICROBATCHES:
+            # a fresh indexed store for each of the three runs, built (the
+            # host k-means) outside them
+            stores = [wrap_store(full_store(cuda), cfg) for _ in range(3)]
+
+            def run():
+                serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab,
+                          cfg=cfg, memory=stores.pop())
+            run()
+            _trace_summary(torch, f"ivf_i2_mb{mb}", run, PASSES * POOL // mb)
+        ivf = serve_rar(cuda, tiers, None, MICROBATCHES[-1], prompts, greqs,
+                        embs, vocab, cfg=cfg,
+                        memory=full_store(cuda))[0].memory
+        q32 = torch.from_numpy(near(rng, protos, 32)).to(cuda)
+        for tag, read in (("ivf_read_B32_k4", ivf.query_topk_batch),
+                          ("exact_read_B32_k4", ivf.exact_query_topk_batch)):
+            read(q32, 4)
+            _trace_summary(torch, tag, lambda: [read(q32, 4)
+                                                for _ in range(20)], 20)
+    if "llama" not in parts:
+        return 0
 
     cfg = getattr(llama3_8b, LLAMA_CONFIG)
     params = init_params(cfg, SEEDS["llama"], device=cuda)
@@ -1087,6 +1220,7 @@ def trace() -> int:
 MAIN_SHAPE = {"memory_topk": "C=4096 E=384 B=32 k=1",
               "memory_top1": "C=65536 E=384 B=32 required=1",
               "ivf_route": "P=1024 E=384 B=8 n_probe=4",
+              "ivf_scan": "C=65536 P=1024 n_probe=4 M=256 B=8 k=1",
               "flash_attention": "llama3-8b B=1 Sq=300 H=32 KV=8 hd=128 "
                                  "bfloat16 window=0 causal=True",
               "decode_attention": "llama3-8b B=1 M=308 cache_len=301 H=32 "
@@ -1097,6 +1231,9 @@ SOURCES = {"memory_topk": ("src/repro_torch/kernels/csrc/memory_topk.cu",
                            "src/repro/kernels/memory_topk.py:301"),
            "ivf_route": ("src/repro_torch/kernels/csrc/ivf_route.cu",
                          "src/repro/kernels/memory_ivf.py:74"),
+           # the counterpart of _ivf_topk_batch_jit (no Pallas body)
+           "ivf_scan": ("src/repro_torch/kernels/csrc/ivf_scan.cu",
+                        "src/repro/core/memory_ivf.py:187"),
            "flash_attention": (
                "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention.py:85"),

@@ -36,8 +36,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.memory_topk import (DEFAULT_BLOCK_C, MASK_GUIDE,
-                                             MASK_VALID, padded_lanes,
-                                             padded_rows)
+                                             MASK_VALID, pack_meta_parts,
+                                             padded_lanes, padded_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,16 +234,6 @@ class QueryResult(_MetaViews):
 class TopKResult(_MetaViews):
     sim: object           # (..., k) f32, sorted by (sim desc, row asc)
     meta: object          # (..., k, 4 + G) int32
-
-
-def pack_meta_parts(idx, bits, hard, added_at, guide) -> torch.Tensor:
-    """THE packed-meta layout [index, has_guide, hard, added_at, guide...].
-    Gathers clamp ``idx`` into the logical rows, as JAX gathers do."""
-    g = idx.long().clamp(max=hard.shape[0] - 1)
-    head = torch.stack([idx.to(torch.int32),
-                        (bits & MASK_GUIDE) // MASK_GUIDE,
-                        hard[g].to(torch.int32), added_at[g]], dim=-1)
-    return torch.cat([head, guide[g]], dim=-1)
 
 
 def pack_meta(state: MemoryState, idx) -> torch.Tensor:

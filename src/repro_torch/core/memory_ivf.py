@@ -9,11 +9,14 @@ store and reads in two levels:
    ``ivf_route`` kernel on the card; the centroid plane in the store's
    padded layout) and keep the top ``probes`` clusters under the
    (score desc, row asc) order.
-2. **Scan**: gather only the probed clusters' member rows. The
-   single-query read sorts them by slot and runs the top-k kernel over the
-   small gathered buffer, so its lowest-row tie-break is the global
-   (sim desc, slot asc) order; the batch read selects over each query's
-   candidates with the plain top-k rounds, keyed by slot.
+2. **Scan**: read only the probed clusters' member rows. The
+   single-query read gathers them sorted by slot and runs the top-k kernel
+   over the small gathered buffer, so its lowest-row tie-break is the
+   global (sim desc, slot asc) order; the batch read is the ``ivf_scan``
+   kernel on the card (one launch for the batch, each kept row read by
+   slot), which selects over each query's candidates keyed by slot, as its
+   plain version does with the top-k rounds. Both sum every dot in the
+   card's order, so a row's sim is the exact scan's, bit for bit.
 
 Probing all clusters reproduces the exact scan on every valid entry; the
 exact scan stays the default (``RARConfig.retrieval_clusters = 0``
@@ -40,8 +43,8 @@ import torch
 
 from repro_torch.core import memory as mem
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.memory_topk import (MASK_VALID, _round_up,
-                                             _topk_select, padded_rows)
+from repro_torch.kernels.memory_ivf import gather_candidates, global_cids
+from repro_torch.kernels.memory_topk import MASK_VALID, _round_up, padded_rows
 
 _SENTINEL = 2 ** 30
 
@@ -49,30 +52,6 @@ _SENTINEL = 2 ** 30
 # ---------------------------------------------------------------------------
 # Read path
 # ---------------------------------------------------------------------------
-
-
-def _global_cids(cids: torch.Tensor, cidmap: torch.Tensor) -> torch.Tensor:
-    """Centroid-plane rows -> cluster ids; padding rows map to the 2**30
-    sentinel (their -2.0 scores drop them at the gather)."""
-    ps = cidmap.shape[0]
-    return torch.where(cids < ps, cidmap[cids.long().clamp(0, ps - 1)],
-                       _SENTINEL)
-
-
-def _gather_candidates(members, assign, scores, cids):
-    """Expand routed clusters into a candidate slot list. Dead probes
-    (score <= -2.0), empty bucket slots and stale members (``assign`` no
-    longer points back at the probed cluster) are dropped by one mask;
-    survivors are unique."""
-    P, M = members.shape
-    C = assign.shape[0]
-    cids_c = cids.long().clamp(0, P - 1)
-    slots = members[cids_c]
-    slots = slots.reshape(slots.shape[:-2] + (-1,))          # (..., P'*M)
-    owner = cids_c.repeat_interleave(M, dim=-1)
-    ok = (scores.repeat_interleave(M, dim=-1) > -2.0) & (slots >= 0)
-    ok = ok & (assign[slots.long().clamp(0, C - 1)] == owner)
-    return slots, ok
 
 
 def _scan_sorted(store, slots_s, rows, bits, q, k: int, required: int
@@ -104,8 +83,8 @@ def _ivf_topk(plane, members, assign, store, q, k: int, n_probe: int,
     C = store.capacity
     scores, cids = kops.ivf_route_padded(cent, q, cmask, n_probe,
                                          MASK_VALID)
-    slots, ok = _gather_candidates(members, assign, scores,
-                                   _global_cids(cids, cidmap))
+    slots, ok = gather_candidates(members, assign, scores,
+                                  global_cids(cids, cidmap))
     order = torch.argsort(torch.where(ok, slots, _SENTINEL), stable=True)
     slots_s, ok_s = slots[order], ok[order]
     phys = slots_s.long().clamp(0, C - 1)
@@ -116,40 +95,16 @@ def _ivf_topk(plane, members, assign, store, q, k: int, n_probe: int,
 
 def _ivf_topk_batch(plane, members, assign, store, qs, k: int, n_probe: int,
                     required: int) -> mem.TopKResult:
-    """Multi-query read. Candidate sets differ per query, so the selection
-    runs the top-k rounds over each query's candidates keyed by global
-    slot (plain tensor code on either device, as in the JAX package).
-    Memory is O(B * L * Ep); the caller chunks B."""
+    """Multi-query read: the route, then the candidate read and its
+    packed-meta epilogue (one ``ivf_scan`` launch on the card; on the CPU
+    its plain version, whose memory is O(B * L * Ep), so the caller chunks
+    B there)."""
     cent, cmask, cidmap = plane
-    C = store.capacity
-    B, E = qs.shape
     scores, cids = kops.ivf_route_batch_padded(cent, qs, cmask, n_probe,
                                                MASK_VALID)
-    slots, ok = _gather_candidates(members, assign, scores,
-                                   _global_cids(cids, cidmap))
-    L = slots.shape[1]
-    phys = slots.long().clamp(0, C - 1)
-    rows = torch.where(ok[..., None], store.emb[phys], 0.0)  # (B, L, Ep)
-    bits = torch.where(ok, store.mask[phys, 0], 0)           # (B, L)
-    qp = torch.zeros((B, store.emb.shape[1]), dtype=torch.float32,
-                     device=qs.device)
-    qp[:, :E] = qs
-    # lane products summed over the lanes: identical rows, identical sims
-    # (see kernels.memory_topk._dots)
-    sims = (rows * qp[:, None, :]).sum(-1)
-    sims = torch.where(ok & ((bits & required) == required), sims, -2.0)
-    # dropped candidates get distinct keys above every slot, so several
-    # sentinel rounds keep the -2.0 sim (as the exact scan's distinct
-    # masked rows do) instead of collapsing onto one consumed key
-    keys = torch.where(ok, slots, _SENTINEL + torch.arange(
-        L, dtype=torch.int32, device=qs.device)[None, :])
-    top_s, top_r = _topk_select(sims.T, keys.T, k)           # (k, B)
-    top_s, top_r = top_s.T, top_r.T
-    gidx = top_r.clamp(0, C - 1)
-    hit = keys[:, :, None] == top_r[:, None, :]              # (B, L, k)
-    wbits = (bits[:, :, None] * hit).sum(dim=1).to(torch.int32)
-    return mem.TopKResult(sim=top_s, meta=mem.pack_meta_parts(
-        gidx, wbits, store.hard, store.added_at, store.guide))
+    return mem.TopKResult(*kops.ivf_scan_batch(
+        scores, cids, cidmap, members, assign, store.emb, store.mask,
+        store.hard, store.added_at, store.guide, qs, k, required))
 
 
 # ---------------------------------------------------------------------------
@@ -397,11 +352,15 @@ class IVFMemory:
 
     def query_topk_batch(self, embs, k: int, guides_only: bool = False,
                          _chunk: int = 8) -> mem.TopKResult:
+        """One read for the whole batch on the card; chunks of ``_chunk``
+        queries on the CPU, whose plain candidate read gathers the rows."""
         self._check_topk(k)
         self._refresh()
         qs = self._queries(embs)
         B = qs.shape[0]
         self._qcount += B
+        if self.device.type == "cuda":
+            _chunk = B
         outs = [_ivf_topk_batch(self._plane, self._members_dev,
                                 self._assign_dev, self.store,
                                 qs[i:i + _chunk], k, self.probes,
@@ -432,7 +391,7 @@ class IVFMemory:
         scores, cids = kops.ivf_route_padded(cent, q, cmask, self.probes,
                                              MASK_VALID)
         scores = scores.cpu().numpy()
-        cids = _global_cids(cids, cidmap).cpu().numpy()
+        cids = global_cids(cids, cidmap).cpu().numpy()
         P, M, C = self.clusters, self.bucket_cap, self.capacity
         cids_c = np.clip(cids, 0, P - 1)
         live = scores > -2.0

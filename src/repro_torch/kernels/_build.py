@@ -21,8 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("memory_topk.cu", "memory_top1.cu", "ivf_route.cu",
-           "flash_attention.cu", "decode_attention.cu")
-HEADERS = ("attention_common.cuh", "store_scan.cuh")
+           "ivf_scan.cu", "flash_attention.cu", "decode_attention.cu")
+HEADERS = ("attention_common.cuh", "store_scan.cuh", "ivf_common.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -38,7 +38,11 @@ _SIGNATURES = {
                                  _P, _P, _P, _I, _P, _P, _P),
     "memory_top1_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                                  _P, _P),
-    "ivf_route_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "ivf_route_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                               _I, _P, _P, _P),
+    "ivf_scan_batch": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P,
+                       _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+                       _P, _P),
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P),
     "decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -107,6 +107,17 @@ def check_k(k: int, cp: int, block_c: int = DEFAULT_BLOCK_C) -> None:
                          f"raise block_c (or shrink k)")
 
 
+def pack_meta_parts(idx, bits, hard, added_at, guide) -> torch.Tensor:
+    """THE packed-meta layout of a store read's result, [index, has_guide,
+    hard, added_at, guide...]. Gathers clamp ``idx`` into the logical rows,
+    as JAX gathers do."""
+    g = idx.long().clamp(max=hard.shape[0] - 1)
+    head = torch.stack([idx.to(torch.int32),
+                        (bits & MASK_GUIDE) // MASK_GUIDE,
+                        hard[g].to(torch.int32), added_at[g]], dim=-1)
+    return torch.cat([head, guide[g]], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version (the CPU path; the card's oracle)
 # ---------------------------------------------------------------------------
@@ -139,6 +150,43 @@ def _masked(sims: torch.Tensor, mask: torch.Tensor, required: int
                        torch.tensor(-2.0, device=sims.device))
 
 
+def _masked_dots(mem, qs, mask, required: int, k: int) -> torch.Tensor:
+    """(Cp, B) sims for a top-``k`` read: -2.0 where a row lacks
+    ``required``; for each query the card's sim (:func:`_dots`) of every
+    row that carries it and can be among its top ``k``, and -inf for the
+    rows that cannot (so the (sim desc, row asc) top-k of the result is
+    the top-k of the card's sims).
+
+    A row can be among the top k unless its f64 dot lies more than 2
+    delta below the k-th largest f64 dot of the view: the card's sum is
+    within delta = 2**-16 |m| |q| of the exact dot (at most 96 roundings
+    of 2**-24 over sum |m_i q_i| <= |m| |q|, for rows of up to 2048
+    lanes), so k rows beat it. Only the (row, query) pairs near the top
+    are summed in the card's order."""
+    Cp, Ep = mem.shape
+    valid = (mask[:, 0] & required) == required
+    sims = torch.full((Cp, qs.shape[0]), -2.0, dtype=torch.float32,
+                      device=mem.device)
+    rows = valid.nonzero()[:, 0]
+    if not rows.numel():
+        return sims
+    m = mem[rows].float()
+    qp = _pad_queries(qs, Ep)
+    approx = m.double() @ qp.double().T                        # (V, B)
+    if rows.numel() <= k or not bool(torch.isfinite(approx).all()):
+        sims[rows] = _dots(m, qs)
+        return sims
+    kth = approx.topk(k, dim=0).values[-1]
+    delta = 2.0 ** -16 * m.double().norm(dim=1).max() * \
+        qp.double().norm(dim=1) + 2.0 ** -140
+    r, b = (approx >= kth - 2 * delta).nonzero(as_tuple=True)
+    near = torch.full(approx.shape, float("-inf"), dtype=torch.float32,
+                      device=mem.device)
+    near[r, b] = _lane_dots(m[r], qp[b])
+    sims[rows] = near
+    return sims
+
+
 def _pad_queries(qs: torch.Tensor, ep: int) -> torch.Tensor:
     """(B, E) queries -> (B, Ep) f32, zero lanes after E: the only copy a
     read makes, O(B * E)."""
@@ -148,25 +196,120 @@ def _pad_queries(qs: torch.Tensor, ep: int) -> torch.Tensor:
     return qp
 
 
+SUM_BLOCK = 32
+#: chain elements a step of :func:`_chains` takes at once
+_CHAIN_ELEMS = 1 << 18
+#: inputs whose nonzero magnitudes lie in [2**-60, 2**50] keep every
+#: partial sum of a chain in f32's normal range or exact (see _lane_dots)
+_TAME = (2.0 ** -60, 2.0 ** 50)
+_TIE_BITS = (0x1FFFFFFF, 0x10000000)  # f64 low bits of an f32 rounding tie
+
+
+def _tame(x: torch.Tensor) -> bool:
+    a = x.abs()
+    return bool(a.max() <= _TAME[1]) and \
+        bool(torch.where(a > 0, a, _TAME[0]).min() >= _TAME[0])
+
+
+def _fma_exact(p: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """fmaf: ``acc`` (f32 values) plus the exact f64 product ``p``, rounded
+    once to f32. The f64 sum is rounded to odd (its TwoSum error says
+    whether it is exact and on which side the exact sum lies: an inexact
+    sum is truncated toward zero and its last bit set), and f64 has
+    53 >= 24 + 2 bits, so rounding that to f32 gives the correctly rounded
+    sum."""
+    s = p + acc
+    bb = s - p
+    err = (p - (s - bb)) + (acc - bb)
+    bits = s.view(torch.int64)
+    trunc = bits - (torch.signbit(err) ^ torch.signbit(s)).to(torch.int64)
+    return torch.where(err != 0, trunc | 1, bits).view(torch.float64).float()
+
+
+def _chains(m: torch.Tensor, q: torch.Tensor, tame: bool) -> torch.Tensor:
+    """The 32-lane FMA chains: m and q (32, ...) f64 (f32 values),
+    broadcastable -> (...) f32, each ``acc = fmaf(m[e], q[e], acc)`` from
+    +0.0, e ascending. For tame inputs (:func:`_lane_dots`) a step is the
+    f64 sum rounded to f32, which is the FMA except where that sum lies
+    exactly on an f32 rounding tie; those elements take :func:`_fma_exact`.
+    Other inputs take it throughout."""
+    prods = m * q
+    shape = prods.shape[1:]
+    prods = prods.reshape(SUM_BLOCK, -1)
+    acc = torch.zeros(prods.shape[1], dtype=torch.float64, device=m.device)
+    s, low = torch.empty_like(acc), torch.empty_like(acc, dtype=torch.int64)
+    out = torch.empty_like(acc, dtype=torch.float32)
+    tie = torch.empty_like(acc, dtype=torch.bool)
+    for p in prods:
+        if not tame:
+            out = _fma_exact(p, acc)
+            acc.copy_(out)
+            continue
+        torch.add(p, acc, out=s)
+        torch.bitwise_and(s.view(torch.int64), _TIE_BITS[0], out=low)
+        torch.eq(low, _TIE_BITS[1], out=tie)
+        out.copy_(s)
+        if bool(tie.any()):
+            at = tie.nonzero()[:, 0]
+            out[at] = _fma_exact(p[at], acc[at])
+        acc.copy_(out)
+    return out.view(shape)
+
+
+def _lane_dots(m: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Dots over the last axis of m (N, ..., Ep) and q (broadcastable to
+    it; its first axis 1 or N), f32, each the value the card's scan core
+    computes (``csrc/store_scan.cuh``, "Summation order"), bit for bit:
+    within each block of 32 lanes one FMA chain from +0.0, lanes
+    ascending, then the blocks' partial sums added in order to a total
+    from +0.0. Lanes past Ep are zero, as the card stages them (+0.0 added
+    to a chain or a total that is never -0.0 changes nothing). So identical
+    rows give identical sims wherever they sit, and ties fall to the lowest
+    row.
+
+    The chains run over rows, queries and blocks at once: 32 dependent
+    steps, then one add a block. An FMA is emulated from the exact f64
+    product (two f32 values have at most 48 product bits). Where every
+    nonzero input magnitude lies in [2**-60, 2**50], products are 0 or
+    f32-normal, so a partial sum in f32's subnormal range is an exact
+    cancellation, and the f64 sum rounded to f32 can differ from the FMA
+    only where it lies exactly on an f32 rounding tie (:func:`_chains`).
+    Rows go in chunks of about 2**18 chain elements."""
+    ep = m.shape[-1]
+    nb = -(-ep // SUM_BLOCK)
+    pad = nb * SUM_BLOCK - ep
+
+    def blocks(x):
+        x = torch.nn.functional.pad(x.float(), (0, pad)).double()
+        return x.view(x.shape[:-1] + (nb, SUM_BLOCK)).movedim(-1, 0)
+    md, qd = blocks(m), blocks(q)
+    tame = _tame(md) and _tame(qd)
+    per_row = torch.broadcast_shapes(md.shape, qd.shape)[2:].numel()
+    step = max(1, _CHAIN_ELEMS // per_row)
+    out = []
+    for i in range(0, md.shape[1], step):
+        acc = _chains(md[:, i:i + step],
+                      qd[:, i:i + step] if qd.shape[1] > 1 else qd, tame)
+        total = torch.zeros(acc.shape[:-1], dtype=torch.float32,
+                            device=m.device)
+        for b in range(nb):
+            total = total + acc[..., b]
+        out.append(total)
+    return torch.cat(out)
+
+
 def _dots(mem: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
-    """(Cp, Ep) rows against (B, E) queries -> (Cp, B) f32 dots, summed the
-    same way for every row (the lane products summed over the lanes), so
-    identical rows give identical sims and ties fall to the lowest row.
-    PyTorch's CPU matrix-vector and matrix products do not promise that:
-    they sum a matrix's last rows in another order, a few ulp apart. The
-    queries go in chunks of at most 2**24 product elements."""
-    m = mem.float()
-    qp = _pad_queries(qs, m.shape[1])
-    step = max(1, (1 << 24) // m.numel())
-    return torch.cat([(m[:, None, :] * qp[None, i:i + step]).sum(-1)
-                      for i in range(0, qp.shape[0], step)], dim=1)
+    """(Cp, Ep) rows against (B, E) queries -> (Cp, B) f32 dots, each the
+    value the card's scan computes (:func:`_lane_dots`)."""
+    qp = _pad_queries(qs, mem.shape[1])
+    return _lane_dots(mem[:, None, :], qp[None])
 
 
 def memory_top1_padded_plain(mem, q, mask, required: int = MASK_VALID):
     """Single query: q (E,) -> (sim (), idx ()). The first maximum (the
     lowest row of a tie), as the JAX oracle's argmax; an empty view gives
     (-2.0, 0)."""
-    sims = _masked(_dots(mem, q[None])[:, 0], mask, required)
+    sims = _masked_dots(mem, q[None], mask, required, 1)[:, 0]
     idx = torch.argmax(sims)
     return sims[idx], idx.to(torch.int32)
 
@@ -174,7 +317,7 @@ def memory_top1_padded_plain(mem, q, mask, required: int = MASK_VALID):
 def memory_top1_batch_padded_plain(mem, qs, mask, required: int = MASK_VALID):
     """qs (B, E) -> (sims (B,), idx (B,)), each the first maximum of its
     row of (B, Cp) sims."""
-    sims = _masked(_dots(mem, qs), mask, required).T
+    sims = _masked_dots(mem, qs, mask, required, 1).T
     idx = torch.argmax(sims, dim=1)
     return sims.gather(1, idx[:, None])[:, 0], idx.to(torch.int32)
 
@@ -197,7 +340,7 @@ def _compact(mem, mask, q):
 def memory_topk_padded_plain(mem, q, mask, k: int,
                              required: int = MASK_VALID):
     """Single query: q (E,) -> (sims (k,), idx (k,))."""
-    sims = _masked(_dots(mem, q[None])[:, 0], mask, required)
+    sims = _masked_dots(mem, q[None], mask, required, k)[:, 0]
     rows = torch.arange(sims.shape[0], dtype=torch.int32, device=mem.device)
     return _topk_select(sims, rows, k)
 
@@ -206,7 +349,7 @@ def memory_topk_batch_padded_plain(mem, qs, mask, k: int,
                                    required: int = MASK_VALID):
     """qs (B, E) -> (sims (B, k), idx (B, k)), each row sorted by
     (sim desc, row asc)."""
-    sims = _masked(_dots(mem, qs), mask, required)              # (Cp, B)
+    sims = _masked_dots(mem, qs, mask, required, k)             # (Cp, B)
     rows = torch.arange(sims.shape[0], dtype=torch.int32,
                         device=mem.device)[:, None].expand_as(sims)
     s, r = _topk_select(sims, rows, k)                          # (k, B)
@@ -218,8 +361,9 @@ def memory_topk_batch_padded_plain(mem, qs, mask, k: int,
 # ---------------------------------------------------------------------------
 
 #: the store kernels' workspaces, each allocated once per (kernel, device,
-#: stream, shape): the state words (B keys, then the ticket), which every
-#: launch leaves at zero, and top-k's tile lists, room for B x k entries a
+#: stream, shape): the state words (here B keys, then the ticket; the IVF
+#: kernels keep their keys and tickets in them too), which every launch
+#: leaves at zero, and top-k's tile lists, room for B x k entries a
 #: tile of the finest tiling the kernel uses (32 rows) and 4 spare (the
 #: kernel reads them back 16 bytes at a time)
 _states: dict = {}
@@ -241,14 +385,6 @@ def _check_cuda(mem, qs, mask, name: str) -> None:
             Ep % 4 or qs.shape[0] < 1:
         raise ValueError(f"bad shapes mem {tuple(mem.shape)}, qs "
                          f"{tuple(qs.shape)}, mask {tuple(mask.shape)}")
-
-
-def check_cuda_inputs(mem, qs, mask, name: str) -> torch.Tensor:
-    """Validate a padded store (or centroid plane) read for a CUDA kernel:
-    mem (Cp, Ep) f32 and mask (Cp, 1) int32, contiguous, qs (B, E) with
-    E <= Ep, all on one card. Returns the (B, Ep) f32 padded queries."""
-    _check_cuda(mem, qs, mask, name)
-    return _pad_queries(qs, mem.shape[1])
 
 
 def _store_queries(mem, qs, mask, name: str) -> torch.Tensor:

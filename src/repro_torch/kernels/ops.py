@@ -21,6 +21,7 @@ from repro_torch.kernels.memory_topk import MASK_VALID
 KERNELS = {"memory_topk": (_mt, "launches"),
            "memory_top1": (_mt, "top1_launches"),
            "ivf_route": (_ivf, "launches"),
+           "ivf_scan": (_ivf, "scan_launches"),
            "flash_attention": (_fa, "launches"),
            "decode_attention": (_da, "launches")}
 
@@ -151,3 +152,18 @@ def ivf_route_padded(cent, q, cmask, n_probe: int,
         return s[0], c[0]
     _mt.check_k(n_probe, cent.shape[0])
     return _ivf.ivf_route_padded_plain(cent, q, cmask, n_probe, required)
+
+
+def ivf_scan_batch(scores, cids, cidmap, members, assign, emb, mask, hard,
+                   added_at, guide, qs, k: int, required: int):
+    """The IVF candidate read after the route: each query's top k over its
+    routed clusters' member rows and the winners' packed meta, (sims
+    (B, k), meta (B, k, 4 + G))
+    (:func:`repro_torch.kernels.memory_ivf.ivf_scan_batch_plain`)."""
+    if _on_cuda(emb):
+        return _ivf.ivf_scan_batch_cuda(scores, cids, cidmap, members,
+                                        assign, emb, mask, hard, added_at,
+                                        guide, qs, k, required)
+    return _ivf.ivf_scan_batch_plain(scores, cids, cidmap, members, assign,
+                                     emb, mask, hard, added_at, guide, qs, k,
+                                     required)

@@ -4,15 +4,18 @@ and no JAX; skips without a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: top-k, top-1 and route rows exact and sims within 1e-6; attention 2e-5 in f32
-and 2e-2 (about one bf16 ulp at |x| < 4) in bf16.
+Tolerances: top-k, top-1, route and IVF candidate-read rows exact and
+sims within 1e-6 (the store-scan edge, route and candidate-read cases:
+sims exact, since the plain versions sum in the card's order); attention
+2e-5 in f32 and 2e-2 (about one bf16 ulp at |x| < 4) in bf16.
 
 The store cases cover the scan's tiling edges (C of 136, 1000, 4096 and
 65536 rows, B of 1 to 64, k up to 128), ties across tiles, CTAs and a
 persistent CTA's tiles, empty views, the workspaces kept between calls,
-and the compact top-1 store read as it is. In the tiling-edge cases two
-rows whose plain sims lie within 1e-6 of each other may come in either
-order (see ``_same``); exact ties still go to the lowest row.
+and the compact top-1 store read as it is. The route cases cover planes
+of 64, 1000 and 1024 centroids at B of 1 to 33 and n_probe of 1, 4 and
+64; the IVF candidate-read cases stale members, empty bucket slots, dead
+probes, k beyond the kept candidates and the guides-only view.
 
 The attention cases cover the split-KV decode (several chunks, a window
 across a chunk boundary, cache_len per row, cache_len = 0, repeated calls
@@ -25,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import _ivf_cases as ivf_cases
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import memory_ivf as tivf
@@ -126,31 +130,11 @@ def _scan_queries(C, B):
     return torch.from_numpy(qs)
 
 
-def _same(got, want, sims=None):
-    """Sims within 1e-6 and rows exact. Where ``sims`` (the plain version's
-    (B, Cp) masked sims) is given, rows may differ inside a near-tie only:
-    the kernel sums in another order than the plain version, so two rows
-    whose sims are 1 ulp apart may come in either order (k = 128 lists of
-    a 65536-row store hold such pairs). Then every returned row must be
-    distinct and carry, by the plain sims, the sim returned for it."""
-    gs, gr = got[0].cpu(), got[1].cpu()
-    np.testing.assert_allclose(gs.numpy(), want[0].cpu().numpy(), atol=1e-6,
-                               rtol=0)
-    if sims is None or torch.equal(gr, want[1].cpu()):
-        np.testing.assert_array_equal(gr.numpy(), want[1].cpu().numpy())
-        return
-    rows = gr.reshape(gr.shape[0], -1).long()
-    assert all(len(set(r.tolist())) == len(r) for r in rows)
-    np.testing.assert_allclose(sims.cpu().gather(1, rows).numpy(),
-                               gs.reshape(rows.shape).numpy(), atol=1e-6,
-                               rtol=0)
-    vals = gs.reshape(rows.shape)
-    tied = vals[:, 1:] == vals[:, :-1]          # equal sims: lowest row first
-    assert (rows[:, 1:][tied] > rows[:, :-1][tied]).all()
-
-
-def _plain_sims(memp, qs, maskp, required=tmt.MASK_VALID):
-    return tmt._masked(tmt._dots(memp, qs), maskp, required).T
+def _same(got, want):
+    """Rows and sims exactly the plain version's: both sum every dot in the
+    scan core's order, so even rows 1 ulp apart come in the same order."""
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -161,8 +145,7 @@ def test_cuda_topk_scan_edges(cuda, C, B, k):
     memp, maskp = (t.to(cuda) for t in _scan_store(C))
     qs = _scan_queries(C, B).to(cuda)
     _same(tmt.memory_topk_batch_padded_cuda(memp, qs, maskp, k),
-          tmt.memory_topk_batch_padded_plain(memp, qs, maskp, k),
-          _plain_sims(memp, qs, maskp))
+          tmt.memory_topk_batch_padded_plain(memp, qs, maskp, k))
 
 
 @pytest.mark.cuda
@@ -173,8 +156,7 @@ def test_cuda_top1_scan_edges(cuda, C, B):
     qs = _scan_queries(C, B).to(cuda)
     for req in (tmt.MASK_VALID, tmt.MASK_VALID | tmt.MASK_GUIDE):
         _same(tmt.memory_top1_batch_padded_cuda(memp, qs, maskp, req),
-              tmt.memory_top1_batch_padded_plain(memp, qs, maskp, req),
-              _plain_sims(memp, qs, maskp, req))
+              tmt.memory_top1_batch_padded_plain(memp, qs, maskp, req))
 
 
 @pytest.mark.cuda
@@ -257,6 +239,83 @@ def test_cuda_route_matches_plain(rng, cuda, P, B, n_probe):
                                          cmaskp.to(cuda),
                                          tmt._pick_block(centp.shape[0],
                                                          1024) + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_probe", [1, 4, 64])
+@pytest.mark.parametrize("B", [1, 8, 32, 33])
+@pytest.mark.parametrize("P", [64, 1000, 1024])
+def test_cuda_route_edges(cuda, P, B, n_probe):
+    """The route on the scan core: key mode at n_probe = 1, list mode above
+    it; a quarter of the clusters unseeded, tied centroids, queries equal
+    to a centroid; scores and rows exactly the plain version's."""
+    rng = np.random.default_rng(P + 7 * B + n_probe)
+    cent = _queries(rng, P, 384)
+    cent[P // 2] = cent[P - 1] = cent[0]
+    bits = (rng.random(P) < 0.75).astype(np.int32) * tmt.MASK_VALID
+    bits[[0, P // 2, P - 1]] = tmt.MASK_VALID
+    centp, cmaskp = (t.to(cuda) for t in tmt.to_padded_layout(
+        torch.from_numpy(cent), torch.from_numpy(bits)))
+    qs = _queries(rng, B, 384)
+    qs[0] = cent[0]
+    qs = torch.from_numpy(qs).to(cuda)
+    for _ in range(2):                   # the workspaces kept between calls
+        _same(ops.ivf_route_batch_padded(centp, qs, cmaskp, n_probe),
+              tivf.ivf_route_batch_padded_plain(centp, qs, cmaskp, n_probe))
+    s, r = ops.ivf_route_padded(centp, qs[0], cmaskp, n_probe)
+    ps, pr = tivf.ivf_route_padded_plain(centp, qs[0], cmaskp, n_probe)
+    _same((s[None], r[None]), (ps[None], pr[None]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guides_only", [False, True])
+@pytest.mark.parametrize("k", [1, 4, 32])
+@pytest.mark.parametrize("n_probe", [1, 3])
+@pytest.mark.parametrize("B", [1, 8, 33])
+def test_cuda_ivf_scan_matches_plain(cuda, B, n_probe, k, guides_only):
+    """The candidate read over stale members, empty bucket slots, dead
+    probes (and one at a plane padding row), k beyond a query's kept
+    candidates and the guides-only view: sims and packed meta exactly the
+    plain version's, twice on the kept workspaces."""
+    ix = ivf_cases.index(B + 10 * n_probe)
+    qs = ivf_cases.queries(ix, B, B)
+    scores, cids = ivf_cases.route(ix, qs, n_probe, B)
+    req = tmt.MASK_VALID | (tmt.MASK_GUIDE if guides_only else 0)
+    args = ivf_cases.scan_args(ix, scores, cids, qs, k, req)
+    want = tivf.ivf_scan_batch_plain(*args)
+    for _ in range(2):
+        got = ops.ivf_scan_batch(*(a.to(cuda) if torch.is_tensor(a) else a
+                                   for a in args))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_ivf_read_on_the_card_equals_the_cpu(cuda):
+    """IVFMemory.query_topk_batch (one route and one candidate-read launch
+    for the batch) gives the CPU's chunked read: sims and meta exactly; and
+    with every cluster probed the exact scan's sims."""
+    from repro_torch.core import memory as tmem
+    from repro_torch.core.memory_ivf import IVFMemory
+    rng = np.random.default_rng(5)
+    X = _queries(rng, 500, 384)
+    guide = rng.integers(0, 9, (500, 4)).astype(np.int32)
+    has_guide, hard = rng.random(500) < 0.5, rng.random(500) < 0.5
+    reads = []
+    for dev in ("cpu", cuda):
+        store = tmem.init_memory(tmem.MemoryConfig(capacity=512,
+                                                   embed_dim=384,
+                                                   guide_len=4), device=dev)
+        tmem.add_batch(store, X, guide, has_guide, hard,
+                       np.arange(500, dtype=np.int32))
+        ivf = IVFMemory(store, clusters=16, probes=16)
+        qs = torch.from_numpy(X[:40]).to(dev)
+        got = ivf.query_topk_batch(qs, 4).device_get()
+        exact = ivf.exact_query_topk_batch(qs, 4).device_get()
+        np.testing.assert_array_equal(got.sim, exact.sim)
+        reads.append(got)
+    np.testing.assert_array_equal(reads[0].sim, reads[1].sim)
+    np.testing.assert_array_equal(reads[0].meta, reads[1].meta)
 
 
 @pytest.mark.cuda

@@ -433,10 +433,15 @@ def test_cpu_dispatch_never_launches_a_kernel(rng):
     ops.memory_topk_batch_padded(memp, q, maskp, 2)
     ops.memory_top1_batch_padded(memp, q, maskp)
     ops.memory_top1_padded(memp, q[0], maskp)
-    ops.ivf_route_batch_padded(memp, q, maskp, 2)
+    s, c = ops.ivf_route_batch_padded(memp, q, maskp, 2)
     ops.ivf_route_padded(memp, q[0], maskp, 2)
+    ids = torch.arange(8, dtype=torch.int32)
+    ops.ivf_scan_batch(s, c, ids, ids.view(8, 1), ids, memp, maskp,
+                       torch.zeros(8, dtype=torch.bool), ids, ids.view(8, 1),
+                       q, 2, 1)
     assert ops.launch_counts() == {"memory_topk": 0, "memory_top1": 0,
-                                   "ivf_route": 0, "flash_attention": 0,
+                                   "ivf_route": 0, "ivf_scan": 0,
+                                   "flash_attention": 0,
                                    "decode_attention": 0}
     with pytest.raises(ValueError):
         ops.flash_attention(x.to("meta"), x.to("meta"), x.to("meta"))

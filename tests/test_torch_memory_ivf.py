@@ -422,3 +422,33 @@ def test_double_wrap_is_identity():
              JConfig(memory=jmem.MemoryConfig(**_cfg(64)),
                      retrieval_clusters=8, retrieval_probes=4))
     assert j.memory.bucket_cap == w1.bucket_cap
+
+
+# ---------------------------------------------------------------------------
+# The batch read: route + candidate read, chunked on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k,guides_only", [(1, False), (4, True), (12, False)])
+def test_batch_read_is_chunk_free_and_matches_jax(rng, k, guides_only):
+    """The batch read gives the same sims and meta whatever the CPU chunk
+    (the card takes the batch in one launch), the single reads' rows on
+    every valid entry, and the JAX plane's result."""
+    C, P = 128, 8
+    j, t = _pair(C, clusters=P, probes=3)
+    protos = _protos(rng, P)
+    _fill((j, t), rng, _clustered(rng, protos, C + 40))     # wrapped ring
+    qs = _clustered(rng, protos, 11)
+    whole = t.query_topk_batch(qs, k, guides_only=guides_only, _chunk=11)
+    for chunk in (1, 4, 8):
+        got = t.query_topk_batch(qs, k, guides_only=guides_only,
+                                 _chunk=chunk)
+        assert torch.equal(got.sim, whole.sim)
+        assert torch.equal(got.meta, whole.meta)
+    for b in (0, 5):
+        one = t.query_topk(qs[b], k, guides_only=guides_only)
+        valid = one.sim > -2.0
+        assert torch.equal(one.sim[valid], whole.sim[b][valid])
+        assert torch.equal(one.meta[valid], whole.meta[b][valid])
+    _same_result(j.query_topk_batch(jnp.asarray(qs), k,
+                                    guides_only=guides_only), whole)

@@ -14,7 +14,8 @@ themselves run only on the card (``tests/test_torch_cuda.py``):
   that consume to -inf, absent (-inf, 2**30) entries past a tile's real
   rows, and the last CTA's merge by k rounds over the tile lists' heads;
 * the summation order: per (row, query), FMA chains over blocks of 32
-  lanes, their partial sums added in lane order.
+  lanes, their partial sums added in lane order (the plain versions' own
+  order since the plain reads sum as the card does).
 
 Each emulation is held against ``memory_topk.py``'s plain functions and
 the JAX oracle ``repro.kernels.ref`` on numpy inputs: rows exact, sims
@@ -329,17 +330,18 @@ def fma_chain(memp, qs, block=32):
 
 def test_summation_order_error_and_ties():
     """At B=32, E=384 over 8192 unit rows, with queries equal to rows (sims
-    of 1.0), the kernel's order (32-lane FMA chains, then their sum) is
-    within 3e-7 of the plain version, where one chain over all 384 lanes
-    strays about twice as far (on 20,000 self-dots one chain reached
-    1.03e-6, over the 1e-6 card tolerance; the blocks 2.4e-7); equal rows
-    wherever they sit give bit-equal sims."""
+    of 1.0), the kernel's order (32-lane FMA chains, then their sum), which
+    the plain version now computes bit for bit (tests/
+    test_torch_ivf_design.py), is within 3e-7 of the f64 dot, where one
+    chain over all 384 lanes strays about twice as far (on 20,000
+    self-dots one chain reached 1.03e-6, over the 1e-6 card tolerance; the
+    blocks 2.4e-7); equal rows wherever they sit give bit-equal sims."""
     memp, qs, _ = _store(8192, 32, seed=2)
-    plain = tmt._dots(memp, qs)
-    chain = fma_chain(memp, qs)
-    err = (chain - plain).abs().max().item()
-    one = (fma_chain(memp, qs, block=memp.shape[1]) - plain).abs().max()
-    assert err < 3e-7 and one.item() > 1.5 * err, (err, one.item())
+    exact = (memp.double() @ tmt._pad_queries(qs, memp.shape[1]).double().T)
+    chain = tmt._dots(memp, qs)
+    err = (chain.double() - exact).abs().max().item()
+    one = (fma_chain(memp, qs, block=memp.shape[1]).double() - exact).abs()
+    assert err < 3e-7 and one.max().item() > 1.5 * err, (err, one.max())
     for a, b in ((8192 // 3, 8192 // 2), (8192 // 3, 8191), (3, 17),
                  (7, 3 * 32 + 7)):
         assert torch.equal(chain[a], chain[b])
