@@ -30,15 +30,30 @@ Phases, each of which fails the run on any error:
   ``query_batch`` (the top-1 kernel) on that store. Card and CPU must
   agree in every step;
 * L: ``ServingEngine.generate_bucketed`` at the full width of llama3-8b
-  (bf16, random weights from a seed) serving 8 mixed-length requests.
+  (bf16, random weights from a seed) serving 8 mixed-length requests;
+* S: the trained system on the card. S0 runs 5 train steps of rar-weak
+  (AdamW) and of the embedder (Adam) from one init on the card and on the
+  CPU (losses within 1e-4 relative, parameters within 1e-4 of the
+  distance trained); S1 trains the whole system with ``build_system`` on
+  the card at the JAX package's defaults (900 / 1100 / 400 steps, batch
+  96, 600 profiled prompts for the router) and prints each part's time,
+  loss and accuracy; S2 checks ``tests/test_system.py``'s premise on it;
+  S3 copies it to the CPU and requires equal failing pools,
+  ``StageResult`` s (``run_rar_experiment`` at microbatch 1 and 16 with
+  the oracle router, 16 with the learned one, pool 120, 3 stages) and
+  baselines on both devices, then the twin's claims on the card's run;
+  S4 runs the fig4 shape on the card (the 754-question pool, 5 stages,
+  microbatch 16, one shuffle) and prints its numbers beside the paper's.
 
-The launch counters are zeroed right before each main-path phase and read
-right after it; a kernel of the path that did not launch fails the run.
+The launch counters are zeroed right before each main-path phase (for S,
+before S1) and read right after it; a kernel of the path that did not
+launch fails the run.
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": ...}``.
 
-:func:`trace` (not part of the run above) profiles the two main paths and
-prints where the card's time goes.
+:func:`trace` (not part of the run above) profiles the main paths (RAR
+serving, the IVF plane, training steps, llama3-8b) and prints where the
+card's time goes.
 """
 from __future__ import annotations
 
@@ -66,6 +81,13 @@ DEV = "cuda"
 LLAMA_CONFIG = "FULL"            # llama3_8b.FULL: all 32 layers
 IVF_EXACT = (64, 64)             # I1: clusters, probes (all: exact)
 IVF_STORE = (65536, 1024, 4)     # I2: capacity, clusters, probes
+S0_STEPS = 5
+S0_LOSS_TOL = 1e-4               # relative, card against CPU
+S0_PARAM_TOL = 1e-4              # relative, L2 over the whole tree
+S3_POOL = 120                    # tests/test_system.py's pool
+S3_RUNS = {"mb1": {}, "mb16": dict(microbatch=16),
+           "mb16_learned": dict(microbatch=16, router_kind="learned")}
+FIG4_STAGES, FIG4_MB = 5, 16
 
 
 def log(*a):
@@ -1079,6 +1101,263 @@ def phase_l(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# Phase S: the trained system on the card
+# ---------------------------------------------------------------------------
+
+
+def s0_train_parity(torch):
+    """S0: the same train steps from the same init on the card and on the
+    CPU: rar-weak's AdamW step and the embedder's Adam step, on the same
+    numpy batches. Returns the trajectories."""
+    import numpy as np
+
+    from repro_torch.configs import rar_system
+    from repro_torch.core import embedder
+    from repro_torch.data.tasks import TaskSuite
+    from repro_torch.experiments.setup import lm_optimizer
+    from repro_torch.models import init_params
+    from repro_torch.training import init_opt_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cuda, cpu = torch.device(DEV), torch.device("cpu")
+    suite = TaskSuite()
+    out = {}
+
+    def compare(tag, run, params):
+        """``run(params, device, rng)`` -> (params, losses) on both."""
+        (pc, lc), (ph, lh) = (run(to_device(params, dev), dev,
+                                  np.random.default_rng(SEEDS["weak"]))
+                              for dev in (cuda, cpu))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        pairs = [(a.cpu(), b) for a, b in zip(leaves(pc), leaves(ph))]
+        err = max((a - b).abs().max().item() for a, b in pairs)
+        # the parameters' difference against how far training moved them,
+        # over the whole tree (one weight whose gradient is within rounding
+        # of zero may take a different Adam step of up to the learning
+        # rate on either device; the max element difference is printed)
+        moved = sum((b - a0.cpu()).square().sum().item() for (_, b), a0 in
+                    zip(pairs, leaves(params))) ** 0.5
+        prel = sum((a - b).square().sum().item() for a, b in pairs) ** 0.5 \
+            / moved
+        log(f"S0 {tag}: {S0_STEPS} steps, losses card "
+            f"{[round(x, 7) for x in lc]}, CPU {[round(x, 7) for x in lh]}; "
+            f"max relative loss difference {rel:.3e} (tolerance "
+            f"{S0_LOSS_TOL}); parameters: L2 difference {prel:.3e} of the "
+            f"L2 distance trained (tolerance {S0_PARAM_TOL}), max element "
+            f"difference {err:.3e}")
+        if not rel <= S0_LOSS_TOL or not prel <= S0_PARAM_TOL:
+            raise AssertionError(f"S0 {tag}: card and CPU training differ")
+        out[tag] = dict(card=lc, cpu=lh, loss_rel=rel, param_rel=prel,
+                        param_max_err=err)
+
+    def lm_run(params, dev, rng):
+        step = make_train_step(rar_system.WEAK, lm_optimizer(900))
+        opt, losses = init_opt_state(params), []
+        for _ in range(S0_STEPS):
+            params, opt, m = step(params, opt, suite.weak_train_batch(rng, 96))
+            losses.append(float(m["loss"]))
+        return params, losses
+
+    def emb_run(params, dev, rng):
+        step = embedder.make_train_step(rar_system.EMBEDDER)
+        opt, losses = embedder.init_opt(params), []
+        for _ in range(S0_STEPS):
+            toks, sids = suite.embedder_batch(rng, 48)
+            params, opt, loss = step(params, opt, toks, sids)
+            losses.append(float(loss))
+        return params, losses
+
+    compare("rar-weak AdamW", lm_run,
+            init_params(rar_system.WEAK, SEEDS["weak"], device=cuda))
+    compare("embedder Adam", emb_run,
+            embedder.init_params(rar_system.EMBEDDER, SEEDS["embedder"],
+                                 device=cuda))
+    return out
+
+
+def premise(system):
+    """``tests/test_system.py``'s capability check: accuracies of strong on
+    all skills, weak on its known and unknown skills, weak guided."""
+    import numpy as np
+    suite = system.suite
+    rng = np.random.default_rng(0)
+
+    def acc(tier, skills, guided=False, n=80):
+        prompts, truth = [], []
+        for _ in range(n):
+            s = int(rng.choice(skills))
+            d, x = suite.domain_of(s), int(rng.integers(0, 100))
+            g = suite.guide(s) if guided else None
+            prompts.append(np.asarray(suite.vocab.question(d, s, x, g),
+                                      np.int32))
+            truth.append(suite.answer(s, x))
+        ans = tier.answer_batch(np.stack(prompts))
+        return float((ans == np.asarray(truth)).mean())
+
+    all_sk = np.arange(suite.cfg.total_skills)
+    unknown = np.setdiff1d(all_sk, suite.weak_known)
+    return {"strong_all": acc(system.strong, all_sk),
+            "weak_known": acc(system.weak, suite.weak_known),
+            "weak_unknown": acc(system.weak, unknown),
+            "weak_unknown_guided": acc(system.weak, unknown, guided=True),
+            "weak_unknown_again": acc(system.weak, unknown)}
+
+
+def rows(results):
+    return [dataclasses.astuple(r) for r in results]
+
+
+def pool_margins(torch, system, pool):
+    """How far the pool sits from a flip: the smallest top-2 logit gap of
+    the tiers' first answer token over its prompts (and the strong tier's
+    over its guide requests), and the closest pairwise embedding
+    similarity to the 0.6 routing threshold."""
+    import numpy as np
+
+    from repro_torch.experiments.stages import _prompts
+    prompts, greqs = _prompts(system, pool)
+    gap = min_logit_gap(torch, (system.weak.engine.params,
+                                system.strong.engine.params), prompts,
+                        greqs, system.weak.engine.device)
+    e = system.embed_many(prompts)
+    sims = e @ e.T
+    np.fill_diagonal(sims, 0.0)
+    return gap, float(np.abs(sims - 0.6).min())
+
+
+def phase_s(torch, ops):
+    from repro_torch.experiments import setup, stages
+
+    cuda, cpu = torch.device(DEV), torch.device("cpu")
+    results = {"S0": s0_train_parity(torch)}
+
+    # S1: train the whole system on the card at the JAX package's defaults
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    system = setup.build_system(device=cuda, cache=False, verbose=True)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    st = system.train_stats
+    log(f"S1 build_system on the card ({card_line()}): {total:.1f} s in all; "
+        + "; ".join(f"{k} {v['seconds']:.1f} s" +
+                    (f", {v['steps']} steps, loss {v['loss']:.4f}"
+                     if "steps" in v else
+                     f", {v['n_profile']} profiled prompts") +
+                    (f", accuracy {v['accuracy']:.4f}"
+                     if v.get("accuracy") is not None else "")
+                    for k, v in st.items()))
+    results["S1"] = dict(seconds=total, **st)
+
+    # S2: the premise the method needs (test_system.py's thresholds)
+    acc = premise(system)
+    log(f"S2 premise on the card-trained system: {acc}")
+    if not (acc["strong_all"] > 0.9 and acc["weak_known"] > 0.75
+            and acc["weak_unknown"] < 0.55 and acc["weak_unknown_guided"] >
+            acc["weak_unknown_again"] + 0.25):
+        raise AssertionError(f"S2: premise fails: {acc}")
+    results["S2"] = acc
+
+    # S3: the card-trained system copied to the CPU serves alike
+    host = setup.build_system(device=cpu, verbose=False, params={
+        "weak": to_device(system.weak.engine.params, cpu),
+        "strong": to_device(system.strong.engine.params, cpu),
+        "embedder": to_device(system.embedder_params, cpu),
+        "router_w": system.router.w.cpu(), "router_b": system.router.b.cpu()})
+    t0 = time.perf_counter()
+    pool = setup.failing_pool(system, domain=0, n=S3_POOL)
+    if pool != setup.failing_pool(host, domain=0, n=S3_POOL):
+        raise AssertionError("S3: failing pools differ card vs CPU")
+    gap, margin = pool_margins(torch, system, pool)
+    log(f"S3 failing_pool(domain=0, n={S3_POOL}) card == CPU; smallest "
+        f"top-2 logit gap over its prompts {gap:.6f}; closest pairwise sim "
+        f"to the 0.6 threshold {margin:.4f} away")
+    s3 = {}
+    for tag, kw in S3_RUNS.items():
+        c, c_rar = stages.run_rar_experiment(system, pool, n_stages=3, seed=0,
+                                             device=cuda, **kw)
+        h, _ = stages.run_rar_experiment(host, pool, n_stages=3, seed=0,
+                                         device=cpu, **kw)
+        if rows(c) != rows(h):
+            raise AssertionError(f"S3 {tag}: StageResults differ card vs CPU:"
+                                 f" {rows(c)} vs {rows(h)}")
+        log(f"S3 {tag}: StageResults card == CPU: {rows(c)}")
+        s3[tag] = (c, c_rar)
+    base = stages.run_baselines(system, pool, n_stages=3)
+    host_base = stages.run_baselines(host, pool, n_stages=3)
+    if {k: rows(v) for k, v in base.items()} != \
+            {k: rows(v) for k, v in host_base.items()}:
+        raise AssertionError("S3: baselines differ card vs CPU")
+    log(f"S3 run_baselines card == CPU: "
+        f"{ {k: rows(v)[0] for k, v in base.items()} }")
+    seq = s3["mb1"][0]
+    n = 3 * len(pool)
+    quality = sum(r.aligned for r in seq) / n
+    checks = {
+        "last stage strong < 0.6 x first":
+            seq[-1].strong_calls < 0.6 * seq[0].strong_calls,
+        "last stage strong < 0.6 x pool":
+            seq[-1].strong_calls < 0.6 * len(pool),
+        "quality > 0.75": quality > 0.75,
+        "beats weak": sum(r.aligned for r in seq) >
+            sum(r.aligned for r in base["weak"]),
+        "beats CoT": sum(r.aligned for r in seq) >
+            sum(r.aligned for r in base["weak_cot"]),
+        "fewer strong calls than the oracle router":
+            sum(r.strong_calls for r in seq) <
+            sum(r.strong_calls for r in base["oracle_router"]),
+    }
+    log(f"S3 claims on the card's sequential run (quality {quality:.4f}): "
+        f"{checks}; S3 took {time.perf_counter() - t0:.1f} s (card and CPU "
+        f"runs)")
+    if not all(checks.values()):
+        raise AssertionError(f"S3: a claim fails: {checks}")
+    results["S3"] = {k: rows(v[0]) for k, v in s3.items()}
+
+    # S4: the fig4 shape on the card
+    t0 = time.perf_counter()
+    pool = setup.failing_pool(system, domain=0)
+    t1 = time.perf_counter()
+    rar_res, _ = stages.run_rar_experiment(
+        system, pool, n_stages=FIG4_STAGES, seed=0, microbatch=FIG4_MB,
+        device=cuda, verbose=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    base = stages.run_baselines(system, pool, n_stages=FIG4_STAGES)
+    n_total = FIG4_STAGES * len(pool)
+    rar_strong = sum(r.strong_calls for r in rar_res)
+    rar_aligned = sum(r.aligned for r in rar_res)
+    fig4 = {
+        "strong_call_reduction_vs_oracle": 1.0 - rar_strong / max(
+            sum(r.strong_calls for r in base["oracle_router"]), 1),
+        "quality_vs_oracle": rar_aligned / n_total,
+        "aligned_vs_weak": rar_aligned / max(
+            sum(r.aligned for r in base["weak"]), 1),
+        "aligned_vs_cot": rar_aligned / max(
+            sum(r.aligned for r in base["weak_cot"]), 1)}
+    log(f"S4 fig4 on the card: {setup.POOL_NAMES[0]} pool n={len(pool)} "
+        f"(pool built in {t1 - t0:.1f} s), {FIG4_STAGES} stages x 1 shuffle,"
+        f" microbatch {FIG4_MB}: per-stage strong calls "
+        f"{[r.strong_calls for r in rar_res]}, aligned "
+        f"{[r.aligned for r in rar_res]}; {n_total / (t2 - t1):.1f} "
+        f"requests/s over the stages; strong-call reduction vs the oracle "
+        f"router {fig4['strong_call_reduction_vs_oracle'] * 100:.1f}% "
+        f"(paper 50.2%), quality {fig4['quality_vs_oracle'] * 100:.1f}% "
+        f"(paper 90.5%), aligned x{fig4['aligned_vs_weak']:.2f} vs weak "
+        f"(paper +349%), x{fig4['aligned_vs_cot']:.2f} vs CoT (paper "
+        f"+135%)")
+    results["S4"] = dict(fig4, strong_calls=[r.strong_calls for r in rar_res],
+                         aligned=[r.aligned for r in rar_res],
+                         req_per_s=n_total / (t2 - t1))
+
+    counts = ops.launch_counts()
+    log(f"S launches on the card (S1-S4): {counts}")
+    for k in ("memory_topk", "flash_attention", "decode_attention"):
+        if counts[k] == 0:
+            raise AssertionError(f"Phase S never launched {k}")
+    return counts, results
+
+
+# ---------------------------------------------------------------------------
 # Trace: where the card's time goes (run on its own, not by main())
 # ---------------------------------------------------------------------------
 
@@ -1134,14 +1413,15 @@ def _trace_summary(torch, tag, fn, n_steps):
                 f"({us / n:.2f} us each)  {key}")
 
 
-def trace(parts=("rar", "ivf", "llama")) -> int:
+def trace(parts=("rar", "ivf", "train", "llama")) -> int:
     """Profile the main paths once each (after a warm-up run): ``rar``,
     the RAR microbatch path at microbatch 8 and 32 (hash embeddings);
     ``ivf``, the same serving against Phase I2's IVF store at microbatch 8
     and 32, and the IVF read alone (B=32, k=4: 20 reads) beside the exact
-    scan's; ``llama``, llama3-8b serving one 130-token request with
-    ``max_new`` 8, whose prefill and decode steps are also timed apart on
-    the host clock::
+    scan's; ``train``, 10 AdamW steps of rar-weak at batch 96 and 10 Adam
+    steps of the embedder (Phase S1's steps); ``llama``, llama3-8b serving
+    one 130-token request with ``max_new`` 8, whose prefill and decode
+    steps are also timed apart on the host clock::
 
         python3 -c "import chip_smoke; chip_smoke.trace()"
     """
@@ -1187,6 +1467,38 @@ def trace(parts=("rar", "ivf", "llama")) -> int:
             read(q32, 4)
             _trace_summary(torch, tag, lambda: [read(q32, 4)
                                                 for _ in range(20)], 20)
+    if "train" in parts:
+        from repro_torch.core import embedder
+        from repro_torch.data.tasks import TaskSuite
+        from repro_torch.experiments.setup import lm_optimizer
+        from repro_torch.training import init_opt_state, make_train_step
+        suite, rng = TaskSuite(), np.random.default_rng(0)
+        lm = make_train_step(rar_system.WEAK, lm_optimizer(900))
+        lm_batches = [suite.weak_train_batch(rng, 96) for _ in range(10)]
+        emb_step = embedder.make_train_step(rar_system.EMBEDDER)
+        emb_batches = [suite.embedder_batch(rng, 48) for _ in range(10)]
+        emb = embedder.init_params(rar_system.EMBEDDER, SEEDS["embedder"],
+                                   device=cuda)
+        state = {"lm": (tiers[0], init_opt_state(tiers[0])),
+                 "emb": (emb, embedder.init_opt(emb))}
+
+        def train_lm():
+            p, o = state["lm"]
+            for b in lm_batches:
+                p, o, m = lm(p, o, b)
+            state["lm"] = (p, o)
+            return float(m["loss"])
+
+        def train_emb():
+            p, o = state["emb"]
+            for toks, sids in emb_batches:
+                p, o, loss = emb_step(p, o, toks, sids)
+            state["emb"] = (p, o)
+            return float(loss)
+        for tag, run in (("train_weak_x10", train_lm),
+                         ("train_embedder_x10", train_emb)):
+            run()
+            _trace_summary(torch, tag, run, 10)
     if "llama" not in parts:
         return 0
 
@@ -1262,6 +1574,7 @@ def main() -> int:
     r_counts, r_results, tiers = phase_r(torch, ops)
     i_counts, _ = phase_i(torch, ops, tiers, r_results)
     l_counts, _ = phase_l(torch, ops)
+    s_counts, _ = phase_s(torch, ops)
 
     kernels = []
     for name in SOURCES:
@@ -1271,7 +1584,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": sum(c.get(name, 0)
-                            for c in (r_counts, i_counts, l_counts)),
+                            for c in (r_counts, i_counts, l_counts,
+                                      s_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

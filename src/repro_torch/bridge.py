@@ -14,8 +14,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.configs import rar_system
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -27,9 +29,7 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def _convert(tree, device):
-    if isinstance(tree, dict):
-        return {k: _convert(v, device) for k, v in tree.items()}
-    return _tensor(tree, device)
+    return tree_map(lambda x: _tensor(x, device), tree)
 
 
 def _check(tree, shapes, path="") -> None:
@@ -86,3 +86,24 @@ def embedder_params(cfg, tree: dict, device="cuda") -> dict:
     }
     _check(tree, shapes)
     return _convert(tree, resolve_device(device))
+
+
+def router(w, b, embed_dim: int, device="cuda") -> tuple:
+    """The JAX ``LearnedRouter``'s (w (E,), b ()) as tensors."""
+    _check({"w": w, "b": b}, {"w": (embed_dim,), "b": ()})
+    dev = resolve_device(device)
+    return _tensor(w, dev), _tensor(b, dev)
+
+
+def system(blob: dict, device="cuda") -> dict:
+    """The JAX package's trained system — the tree its
+    ``experiments/setup.py`` caches, ``{"weak", "strong", "embedder",
+    "router_w", "router_b"}`` with numpy leaves — as the parameters
+    ``repro_torch.experiments.setup.build_system(params=...)`` takes."""
+    w, b = router(blob["router_w"], blob["router_b"],
+                  rar_system.EMBEDDER.embed_dim, device)
+    return {"weak": lm_params(rar_system.WEAK, blob["weak"], device),
+            "strong": lm_params(rar_system.STRONG, blob["strong"], device),
+            "embedder": embedder_params(rar_system.EMBEDDER,
+                                        blob["embedder"], device),
+            "router_w": w, "router_b": b}

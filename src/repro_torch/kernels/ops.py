@@ -3,6 +3,11 @@
 * CPU tensors take the plain PyTorch version.
 * CUDA tensors launch the hand-written kernel (``csrc/*.cu``), or raise.
 
+The kernels are forward-only: their outputs carry no autograd history. So
+a CUDA call whose input requires grad, with grad mode on, raises rather
+than cut the graph silently (training runs the model-level
+``models.layers.attention``). The plain versions stay differentiable.
+
 There is no implementation switch and no fallback: a kernel that cannot
 build or launch is an error. ``chip_smoke.py`` calls the plain versions
 directly when it holds a kernel against them.
@@ -26,8 +31,19 @@ KERNELS = {"memory_topk": (_mt, "launches"),
            "decode_attention": (_da, "launches")}
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
+def _on_cuda(t: torch.Tensor, *inputs) -> bool:
+    """Does the call go to a kernel? By ``t``'s device; on the card, no
+    tensor among ``t`` and ``inputs`` may require grad while grad mode is
+    on."""
     if t.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                torch.is_tensor(x) and x.requires_grad
+                for x in (t, *inputs)):
+            raise RuntimeError(
+                "a CUDA kernel got an input that requires grad: the kernels "
+                "are forward-only and would cut the autograd graph; detach "
+                "the inputs, run under torch.no_grad(), or train with "
+                "models.layers.attention")
         return True
     if t.device.type == "cpu":
         return False
@@ -49,7 +65,7 @@ def memory_top1_batch_padded(mem, qs, mask, required: int = MASK_VALID):
     """Zero-copy multi-query top-1 over the padded store layout:
     (sims (B,), idx (B,)), the max sim and the lowest row of a tie; an
     empty view gives (-2.0, 0)."""
-    if _on_cuda(mem):
+    if _on_cuda(mem, qs, mask):
         return _mt.memory_top1_batch_padded_cuda(mem, qs, mask, required)
     return _mt.memory_top1_batch_padded_plain(mem, qs, mask, required)
 
@@ -57,7 +73,7 @@ def memory_top1_batch_padded(mem, qs, mask, required: int = MASK_VALID):
 def memory_top1_padded(mem, q, mask, required: int = MASK_VALID):
     """Single-query top-1: (sim (), idx ()). On the card it is the top-1
     kernel with one query."""
-    if _on_cuda(mem):
+    if _on_cuda(mem, q, mask):
         s, r = _mt.memory_top1_batch_padded_cuda(mem, q[None], mask,
                                                  required)
         return s[0], r[0]
@@ -70,7 +86,7 @@ def _compact_store(mem, mask):
     is (the scan takes any row count; only the mask is widened to a (C, 1)
     int32 plane, where a bool mask's 1 is MASK_VALID); anything else takes
     the padded layout (one O(C * E) copy: not a serving path)."""
-    if _on_cuda(mem) and mem.dtype == torch.float32 and \
+    if _on_cuda(mem, mask) and mem.dtype == torch.float32 and \
             mem.is_contiguous() and mem.shape[1] % 4 == 0 and \
             mem.data_ptr() % 16 == 0:
         return mem, mask.to(torch.int32).reshape(-1, 1)
@@ -93,7 +109,7 @@ def memory_topk_batch_padded(mem, qs, mask, k: int,
                              required: int = MASK_VALID):
     """Zero-copy multi-query top-k over the padded store layout:
     (sims (B, k), idx (B, k)) sorted by (sim desc, row asc)."""
-    if _on_cuda(mem):
+    if _on_cuda(mem, qs, mask):
         return _mt.memory_topk_batch_padded_cuda(mem, qs, mask, k, required)
     _mt.check_k(k, mem.shape[0])
     return _mt.memory_topk_batch_padded_plain(mem, qs, mask, k, required)
@@ -102,7 +118,7 @@ def memory_topk_batch_padded(mem, qs, mask, k: int,
 def memory_topk_padded(mem, q, mask, k: int, required: int = MASK_VALID):
     """Single-query top-k: (sims (k,), idx (k,)). On the card it is the
     batch kernel with one query, as in the JAX package."""
-    if _on_cuda(mem):
+    if _on_cuda(mem, q, mask):
         s, r = _mt.memory_topk_batch_padded_cuda(mem, q[None], mask, k,
                                                  required)
         return s[0], r[0]
@@ -112,7 +128,7 @@ def memory_topk_padded(mem, q, mask, k: int, required: int = MASK_VALID):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, kv_len=None):
-    if _on_cuda(q):
+    if _on_cuda(q, k, v, kv_len):
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window, scale=scale,
                                         kv_len=kv_len)
@@ -122,7 +138,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def decode_attention(q, k, v, cache_len, *, window: int = 0,
                      scale: float | None = None):
-    if _on_cuda(q):
+    if _on_cuda(q, k, v, cache_len):
         return _da.decode_attention_cuda(q, k, v, cache_len, window=window,
                                          scale=scale)
     return _da.decode_attention_plain(q, k, v, cache_len, window=window,
@@ -134,7 +150,7 @@ def ivf_route_batch_padded(cent, qs, cmask, n_probe: int,
     """Top-``n_probe`` centroid rows per query over the padded centroid
     plane: (scores (B, n_probe), cids (B, n_probe)) sorted by
     (score desc, row asc)."""
-    if _on_cuda(cent):
+    if _on_cuda(cent, qs, cmask):
         return _ivf.ivf_route_batch_padded_cuda(cent, qs, cmask, n_probe,
                                                 required)
     _mt.check_k(n_probe, cent.shape[0])
@@ -146,7 +162,7 @@ def ivf_route_padded(cent, q, cmask, n_probe: int,
                      required: int = MASK_VALID):
     """Single-query route: (scores (n_probe,), cids (n_probe,)); on the
     card the batch kernel with one query."""
-    if _on_cuda(cent):
+    if _on_cuda(cent, q, cmask):
         s, c = _ivf.ivf_route_batch_padded_cuda(cent, q[None], cmask,
                                                 n_probe, required)
         return s[0], c[0]
@@ -160,7 +176,7 @@ def ivf_scan_batch(scores, cids, cidmap, members, assign, emb, mask, hard,
     routed clusters' member rows and the winners' packed meta, (sims
     (B, k), meta (B, k, 4 + G))
     (:func:`repro_torch.kernels.memory_ivf.ivf_scan_batch_plain`)."""
-    if _on_cuda(emb):
+    if _on_cuda(emb, scores, qs, mask):
         return _ivf.ivf_scan_batch_cuda(scores, cids, cidmap, members,
                                         assign, emb, mask, hard, added_at,
                                         guide, qs, k, required)

@@ -14,9 +14,11 @@ other rounds:
   f32, on the CPU a product of the operands upcast to f32 (exact, since
   the products of bf16 values are exact in f32).
 
-Attention itself is not here: the model calls the kernels through
-:mod:`repro_torch.kernels.ops` (flash attention for sequences, decode
-attention for one step).
+Serving does not call :func:`attention`: the model sends it to the
+kernels through :mod:`repro_torch.kernels.ops` (flash attention for
+sequences, decode attention for one step). :func:`attention` is the
+model-level attention of the training forward, plain differentiable
+PyTorch; the kernels are forward-only.
 """
 from __future__ import annotations
 
@@ -96,6 +98,52 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA masked by positions, optional sliding window)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+               causal: bool) -> torch.Tensor:
+    """Boolean mask (B, Sq, Sk); negative key positions are always
+    masked."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    mask = (k_pos >= 0)[..., None, :].expand_as(diff)
+    if causal:
+        mask = mask & (diff >= 0)
+    if window > 0:
+        mask = mask & (diff < window)
+    return mask
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              q_positions: torch.Tensor, k_positions: torch.Tensor,
+              causal: bool = True, window: int = 0,
+              softmax_scale: float | None = None) -> torch.Tensor:
+    """Grouped-query attention, ``layers.attention`` of the JAX package.
+
+    q (B, Sq, H, hd); k, v (B, Sk, KV, hd), H % KV == 0; positions (B, Sq)
+    and (B, Sk). Scores and the output accumulate in f32 (operands upcast,
+    exact for bf16), probabilities are cast to v's dtype, the output to
+    q's. The whole (Sq, Sk) score matrix is formed at once: the JAX
+    version's chunked online softmax for Sk > 1024 is the same function
+    in another summation order.
+    """
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    qg = q.reshape(B, Sq, KV, H // KV, hd) * scale
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    mask = _attn_mask(q_positions, k_positions, window, causal)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.tensor(NEG_INF, device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.float(), v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Dense decoder model, the counterpart of the dense family of
 ``src/repro/models/model.py``: ``init_params``, ``embed_tokens``,
-``output_logits``, ``init_cache``, ``prefill``, ``_pad_kv`` and
-``decode_step``.
+``output_logits``, ``forward``, ``loss_fn``, ``init_cache``, ``prefill``,
+``_pad_kv`` and ``decode_step``.
 
 Public layouts are the JAX package's: parameters stacked on a leading
 layer axis, the KV cache (L, B, M, KV, hd), queries (B, S, H, hd). The
@@ -11,6 +11,11 @@ layer scan is a Python loop. Sequence attention goes to
 for the whole batch, so the causal mask over cache slots is exactly a
 valid-length mask. Unlike the functional JAX version, :func:`decode_step`
 writes the new key/value into the cache in place.
+
+The training forward (:func:`forward`, :func:`loss_fn`) runs the same
+blocks with the model-level :func:`repro_torch.models.layers.attention`,
+which autograd differentiates; the kernels are forward-only and refuse a
+tensor that requires grad.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from repro_torch.models.config import ModelConfig, assert_valid
 Params = dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -122,13 +129,26 @@ def output_logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
 # ===========================================================================
 
 
+def kernel_attention(q, k, v, positions, window: int, causal: bool):
+    """Sequence attention for serving: the flash kernel (positions are the
+    sequence's own, aligned to its end)."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def model_attention(q, k, v, positions, window: int, causal: bool):
+    """Sequence attention for training: differentiable
+    :func:`layers.attention`."""
+    return L.attention(q, k, v, q_positions=positions, k_positions=positions,
+                       causal=causal, window=window)
+
+
 def _attn_block_seq(cfg: ModelConfig, lp: Params, x, positions,
-                    window: int, *, causal: bool):
+                    window: int, *, causal: bool, attend=kernel_attention):
     """Attention + FFN residual block over a whole sequence; returns the
     new hidden state and this layer's (k, v)."""
     h = L.apply_norm(cfg.norm_type, lp.get("ln1"), x)
     q, k, v = L.attention_qkv(lp["attn"], h, positions, cfg.rope_theta)
-    attn = ops.flash_attention(q, k, v, causal=causal, window=window)
+    attn = attend(q, k, v, positions, window, causal)
     x = x + L.attention_out(lp["attn"], attn)
     h = L.apply_norm(cfg.norm_type, lp.get("ln2"), x)
     return x + L.mlp(lp["mlp"], h), k, v
@@ -151,6 +171,48 @@ def _attn_block_step(cfg: ModelConfig, lp: Params, x_t, pos: int,
     x_t = x_t + L.attention_out(lp["attn"], attn[:, None])[:, 0]
     h = L.apply_norm(cfg.norm_type, lp.get("ln2"), x_t[:, None, :])
     return x_t + L.mlp(lp["mlp"], h)[:, 0]
+
+
+# ===========================================================================
+# Full-sequence forward (training)
+# ===========================================================================
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device)[None].expand(B, S)
+
+
+def forward(cfg: ModelConfig, params: Params, batch: dict):
+    """Teacher-forcing forward of ``batch["tokens"]`` (B, S): (logits
+    (B, S, V) f32, aux loss 0 for the dense family)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens)
+    positions = _positions(tokens)
+    for i, window in enumerate(cfg.layer_windows()):
+        x = _attn_block_seq(cfg, layer_params(params["layers"], i), x,
+                            positions, window, causal=True,
+                            attend=model_attention)[0]
+    return (output_logits(cfg, params, x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict):
+    """Masked next-token cross-entropy (labels < 0 are ignored) plus the
+    weighted aux loss; metrics ``ce``, ``aux`` and ``accuracy``."""
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = (nll * mask).sum() / denom
+    hits = (torch.argmax(logits, dim=-1) == labels).float()
+    return ce + AUX_LOSS_WEIGHT * aux, {
+        "ce": ce, "aux": aux, "accuracy": (hits * mask).sum() / denom}
 
 
 # ===========================================================================
@@ -186,9 +248,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
+    S = tokens.shape[1]
+    positions = _positions(tokens)
     ks, vs = [], []
     for i, window in enumerate(cfg.layer_windows()):
         x, k, v = _attn_block_seq(cfg, layer_params(params["layers"], i),

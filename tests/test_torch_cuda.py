@@ -415,3 +415,65 @@ def test_cuda_flash_matches_plain(rng, cuda, B, Sq, Sk, H, KV, hd, causal,
     want = fa.flash_attention_plain(q, k, v, **kw).float()
     got = fa.flash_attention_cuda(q, k, v, **kw).float()
     assert (got - want).abs().max().item() <= ATTN_TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# the kernels are forward-only: a CUDA input that requires grad is refused
+# ---------------------------------------------------------------------------
+
+
+def _grad_cases(dev):
+    """One call of each dispatch route, on ``dev``, whose first tensor
+    requires grad."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+    memp, maskp = tmt.to_padded_layout(
+        torch.nn.functional.normalize(torch.randn((256, 384), generator=g)),
+        torch.full((256,), tmt.MASK_VALID, dtype=torch.int32))
+    memp, maskp = memp.to(dev), maskp.to(dev)
+    qs = torch.nn.functional.normalize(t(4, 384), dim=1)
+    cl = torch.full((2,), 9, dtype=torch.int32, device=dev)
+    return {
+        "flash": lambda w: ops.flash_attention(t(2, 9, 4, 32) * w,
+                                               t(2, 9, 4, 32), t(2, 9, 4, 32)),
+        "decode": lambda w: ops.decode_attention(t(2, 4, 32) * w,
+                                                 t(2, 12, 4, 32),
+                                                 t(2, 12, 4, 32), cl),
+        "topk": lambda w: ops.memory_topk_batch_padded(memp, qs * w, maskp,
+                                                       4),
+        "top1": lambda w: ops.memory_top1_batch_padded(memp, qs * w, maskp),
+        "route": lambda w: ops.ivf_route_batch_padded(memp, qs * w, maskp,
+                                                      4),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["flash", "decode", "topk", "top1",
+                                   "route"])
+def test_cuda_kernels_refuse_inputs_that_require_grad(cuda, route):
+    call = _grad_cases(cuda)[route]
+    w = torch.ones((), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        call(w)
+    with torch.no_grad():                  # no graph: the kernel runs
+        call(w)
+    call(w.detach())
+
+
+def test_plain_attention_route_backpropagates():
+    """On the CPU ``ops.flash_attention`` is the plain version, which
+    autograd differentiates like the model-level attention."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 9, 4, 32), generator=g).requires_grad_(True)
+               for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    pos = torch.arange(9)[None].expand(2, 9)
+    ref = L.attention(q, k, v, q_positions=pos, k_positions=pos, causal=True)
+    want = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    for a, b in zip(grads, want):
+        assert a.abs().max().item() > 0
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -15,6 +15,8 @@ import repro_torch
 from repro_torch.configs import rar_system as trar
 from repro_torch.core import embedder, memory
 from repro_torch.core.pipeline import MicrobatchRAR
+from repro_torch.core.router import train_router
+from repro_torch.experiments import build_system, run_rar_experiment
 from repro_torch.models import init_cache, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,6 +33,12 @@ def test_no_jax_or_reference_package_in_sys_modules():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
     assert "repro_torch.core.pipeline" in mods and len(mods) >= 20
+    for m in ("repro_torch.training.optimizer",
+              "repro_torch.training.train_step",
+              "repro_torch.training.checkpoint", "repro_torch.core.router",
+              "repro_torch.experiments.setup",
+              "repro_torch.experiments.stages"):
+        assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "sys.path.insert(0, sys.argv[1])\n"
@@ -57,6 +65,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         init_cache(trar.WEAK, 1, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MicrobatchRAR(None, None, None, None, trar.make_rar_config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_system(cache=False, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_rar_experiment(None, [])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_router([[1.0]], [1.0])
     assert init_params(trar.WEAK, seed=0, device="cpu")["embed"].device.type \
         == "cpu"
 
