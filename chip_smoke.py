@@ -43,11 +43,28 @@ Phases, each of which fails the run on any error:
   the oracle router, 16 with the learned one, pool 120, 3 stages) and
   baselines on both devices, then the twin's claims on the card's run;
   S4 runs the fig4 shape on the card (the 754-question pool, 5 stages,
-  microbatch 16, one shuffle) and prints its numbers beside the paper's.
+  microbatch 16, one shuffle) and prints its numbers beside the paper's;
+* A (after I; A4 after S): the shadow plane's drain modes and the
+  journal on the card, on R1's workload at microbatch 8. A1: async with a
+  barrier after every batch, deferred at flush-every 1 and adaptive under
+  an always-drain policy each equal R1's inline run field for field (192
+  strong calls), and the async drainer's memory_topk, flash and decode
+  kernels launched on its own CUDA stream. A2: unbarriered async (with a
+  drain delay) and adaptive, and deferred, at flush-every 4, journaled:
+  the queue's invariants hold and the card store equals the journal
+  replayed on the CPU; A2b the async leg on I1's IVF plane (its epochs'
+  ops replayed on a CPU IVF store); requests/s by mode. A3: crashes at
+  the WAL write and at the apply of an epoch; the journal reopened on the
+  card gives the never-crashed store one epoch behind and at that epoch,
+  and the recovered controller serves the rest of the stream to the
+  never-crashed Outcomes. A4: ``repro_torch.launch.serve.main`` on Phase
+  S's system, async and journaled, run twice on one journal: the restart
+  starts from the first run's final store and the last manifest it
+  journaled.
 
 The launch counters are zeroed right before each main-path phase (for S,
-before S1) and read right after it; a kernel of the path that did not
-launch fails the run.
+before S1; A1-A3 together, A4 alone) and read right after it; a kernel of
+the path that did not launch fails the run.
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": ...}``.
 
@@ -57,6 +74,7 @@ card's time goes.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -88,6 +106,9 @@ S3_POOL = 120                    # tests/test_system.py's pool
 S3_RUNS = {"mb1": {}, "mb16": dict(microbatch=16),
            "mb16_learned": dict(microbatch=16, router_kind="learned")}
 FIG4_STAGES, FIG4_MB = 5, 16
+WAIT_S = 120.0                   # the longest any shadow barrier may take
+A2_FLUSH, A2_DELAY = 4, 0.005    # A2: drain cadence and injected delay
+A3_SNAPSHOT, A3_CRASH = 3, {"wal": 5, "apply": 8}   # A3: epochs
 
 
 def log(*a):
@@ -652,11 +673,14 @@ def to_device(tree, dev):
 
 
 def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab,
-              cfg=None, memory=None):
+              cfg=None, memory=None, flush_each=False, setup=None,
+              fault_plan=None, start=0):
     """Serve the workload through ``MicrobatchRAR`` on ``device`` (PASSES
-    passes at microbatch ``mb``). Returns the controller, the Outcomes, the
-    wall time, the embeddings computed (R2) and every top-1 sim the serve
-    plane read."""
+    passes at microbatch ``mb``, from request ``start`` of the stream).
+    ``flush_each`` puts a shadow barrier after every batch; every run ends
+    on one; ``setup(ctrl)`` runs before serving. Returns the controller,
+    the Outcomes, the wall time, the embeddings computed (R2) and every
+    top-1 sim the serve plane read."""
     import numpy as np
 
     from repro_torch.configs import rar_system
@@ -680,9 +704,11 @@ def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab,
 
     ctrl = MicrobatchRAR(weak, strong, None, lambda e, k: False,
                          cfg or rar_system.make_rar_config(), device=device,
-                         memory=memory,
+                         memory=memory, fault_plan=fault_plan,
                          embed_batch_fn=(None if emb_params is None
                                          else embed_batch))
+    if setup is not None:
+        setup(ctrl)
     sims = []
     lookup = ctrl._lookup_batch
 
@@ -694,13 +720,16 @@ def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab,
     ctrl._lookup_batch = recorded_lookup
     outs = []
     t0 = time.perf_counter()
-    for _ in range(PASSES):
-        for start in range(0, POOL, mb):
-            sl = slice(start, start + mb)
-            outs += ctrl.process_batch(
-                prompts[sl], greqs[sl],
-                keys=list(range(start, start + len(prompts[sl]))),
-                embs=None if emb_params is not None else embs[sl])
+    for pos in range(start, PASSES * POOL, mb):
+        first = pos % POOL
+        sl = slice(first, first + mb)
+        outs += ctrl.process_batch(
+            prompts[sl], greqs[sl],
+            keys=list(range(first, first + len(prompts[sl]))),
+            embs=None if emb_params is not None else embs[sl])
+        if flush_each:
+            ctrl.flush_shadow(timeout=WAIT_S)
+    ctrl.flush_shadow(timeout=WAIT_S)
     if device.type == "cuda":
         import torch
         torch.cuda.synchronize()
@@ -813,7 +842,8 @@ def phase_r(torch, ops):
             log(line)
             results[f"{phase}_mb{mb}"] = dict(
                 strong_calls=strong, req_per_s=n / c_dt,
-                outcomes=[dataclasses.astuple(o) for o in c_outs])
+                outcomes=[dataclasses.astuple(o) for o in c_outs],
+                ctrl=c_ctrl)
     for k in ("memory_topk", "flash_attention", "decode_attention"):
         if counts.get(k, 0) == 0:
             raise AssertionError(f"Phase R never launched {k}")
@@ -1348,6 +1378,7 @@ def phase_s(torch, ops):
     results["S4"] = dict(fig4, strong_calls=[r.strong_calls for r in rar_res],
                          aligned=[r.aligned for r in rar_res],
                          req_per_s=n_total / (t2 - t1))
+    results["system"] = system
 
     counts = ops.launch_counts()
     log(f"S launches on the card (S1-S4): {counts}")
@@ -1355,6 +1386,384 @@ def phase_s(torch, ops):
         if counts[k] == 0:
             raise AssertionError(f"Phase S never launched {k}")
     return counts, results
+
+
+# ---------------------------------------------------------------------------
+# Phase A: the shadow plane's async and adaptive drains, the journal
+# ---------------------------------------------------------------------------
+
+
+def a_dir(tag: str) -> Path:
+    """A fresh directory for a journal, under the gitignored build/."""
+    import shutil
+    path = ROOT / "build" / "phase_a" / tag
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def same_engines(tag, a, b, what="stats"):
+    for tier in ("weak", "strong"):
+        x = getattr(getattr(a, tier).engine, what)()
+        y = getattr(getattr(b, tier).engine, what)()
+        if x != y:
+            raise AssertionError(f"{tag} {tier} engine stats differ: {x} vs "
+                                 f"{y}")
+
+
+def same_run(tag, c, ref_ctrl, ref_outs):
+    """A run of serve_rar equals a reference run field for field: Outcome
+    streams, FM engine stats, store and RQ2 counters."""
+    if [dataclasses.astuple(o) for o in c[1]] != ref_outs:
+        raise AssertionError(f"{tag}: Outcome stream differs")
+    same_engines(tag, c[0], ref_ctrl)
+    same_store(c[0].memory, ref_ctrl.memory)
+    for f in ("now", "guides_from_memory", "guides_generated"):
+        if getattr(c[0], f) != getattr(ref_ctrl, f):
+            raise AssertionError(f"{tag}: {f} differs")
+
+
+def traced_runner(ctrl, seqs):
+    """Wrap the queue's runner to record every drained item's seq."""
+    orig = ctrl.shadow.runner
+
+    def runner(items):
+        orig(items)
+        seqs.extend(it.seq for it in items)
+    ctrl.shadow.runner = runner
+
+
+def queue_invariants(tag, c, seqs):
+    """tests/test_shadow.py::_stress's invariants after the last barrier."""
+    ctrl, outs = c[0], c[1]
+    q = ctrl.shadow
+    if not (q.items_enqueued == q.items_drained == len(seqs)):
+        raise AssertionError(f"{tag}: enqueued {q.items_enqueued}, drained "
+                             f"{q.items_drained}, runner saw {len(seqs)}")
+    if seqs != list(range(1, len(seqs) + 1)):
+        raise AssertionError(f"{tag}: items did not drain once each in seq "
+                             f"order")
+    if any(o.case == "shadow_pending" for o in outs):
+        raise AssertionError(f"{tag}: an Outcome is still shadow_pending")
+    store = getattr(ctrl.memory, "store", ctrl.memory)
+    if q.buffer.entries_applied != store.ptr:
+        raise AssertionError(f"{tag}: entries_applied "
+                             f"{q.buffer.entries_applied} != ptr {store.ptr}")
+    if ctrl.memory_occupancy != store.size_fast:
+        raise AssertionError(f"{tag}: occupancy {ctrl.memory_occupancy} != "
+                             f"store size {store.size_fast}")
+
+
+def die(ctrl):
+    """What a crash leaves of a controller: its drainer stops with the
+    failed epoch's items lost, its journal file closes."""
+    q = ctrl.shadow
+    with q._cv:
+        q._items, q._stop = [], True
+        q._cv.notify_all()
+    if q._worker is not None:
+        q._worker.join(WAIT_S)
+        if q._worker.is_alive():
+            raise AssertionError("a crashed controller's drainer is wedged")
+    ctrl.commit_stream.journal.close()
+
+
+def copy_store(st):
+    from repro_torch.core import memory as mem
+    return mem.MemoryState(emb=st.emb.clone(), mask=st.mask.clone(),
+                           guide=st.guide.clone(), hard=st.hard.clone(),
+                           added_at=st.added_at.clone(), ptr=st.ptr)
+
+
+def phase_a(torch, ops, tiers, r_results):
+    """A1-A3 (see the module docstring). Returns the launch counts, the
+    results and the measured requests/s by mode."""
+    import numpy as np
+
+    from repro_torch.configs import rar_system
+    from repro_torch.core import memory as mem
+    from repro_torch.core.memory_ivf import IVFMemory
+    from repro_torch.core.shadow import DrainPolicy
+    from repro_torch.serving.faults import FaultPlan, InjectedFault
+
+    cuda, cpu = torch.device(DEV), torch.device("cpu")
+    vocab, prompts, greqs, embs = workload()
+    mb, n = MICROBATCHES[0], PASSES * POOL
+    ref = r_results[f"R1_mb{mb}"]
+    results, rates = {}, {}
+    ops.reset_launches()
+
+    def serve(cfg, **kw):
+        return serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab,
+                         cfg=cfg, **kw)
+
+    def always_drain(ctrl):
+        pol = DrainPolicy()
+        pol.register(ctrl.shadow)
+        ctrl.shadow.drain_policy = pol
+
+    # A1: deterministic schedules equal R1's inline run on the card
+    serve_stream = torch.cuda.current_stream(cuda).cuda_stream
+    for mode, flush, kw in (("async", 1, dict(flush_each=True)),
+                            ("deferred", 1, {}),
+                            ("adaptive", 0, dict(setup=always_drain))):
+        cfg = rar_system.make_rar_config(shadow_mode=mode,
+                                         shadow_flush_every=flush)
+        before = ops.stream_launches()
+        c = serve(cfg, **kw)
+        c[0].close_shadow(timeout=WAIT_S)
+        same_run(f"A1 {mode}", c, ref["ctrl"], ref["outcomes"])
+        strong = sum(o.strong_calls for o in c[1])
+        if strong != JAX_STRONG_CALLS:
+            raise AssertionError(f"A1 {mode}: {strong} strong calls")
+        line = (f"A1 {mode} (flush-every {flush}"
+                f"{', barrier after every batch' if mode == 'async' else ''}"
+                f"): Outcome streams, FM engine stats, store and counters == "
+                f"R1 inline on the card; strong calls {strong} per {n}; "
+                f"drains {c[0].shadow.drains}")
+        if mode == "async":
+            drainer = c[0].shadow.stream.cuda_stream
+            after = ops.stream_launches()
+            by = {}
+            for (k, st), v in after.items():
+                v -= before.get((k, st), 0)
+                if v:
+                    name = ("serve" if st == serve_stream else
+                            "drainer" if st == drainer else f"stream {st}")
+                    by.setdefault(k, {})[name] = v
+            line += (f"; launches by stream (serve {serve_stream}, drainer "
+                     f"{drainer}): {by}")
+            for k in ("memory_topk", "flash_attention", "decode_attention"):
+                if by.get(k, {}).get("drainer", 0) == 0:
+                    raise AssertionError(f"A1 async: the drainer never "
+                                         f"launched {k} on its stream")
+            if set(by.get("memory_topk", {})) - {"serve", "drainer"}:
+                raise AssertionError(f"A1 async: a launch on another stream"
+                                     f": {by}")
+            results["A1_streams"] = by
+        log(line)
+
+    # A2: unbarriered async and adaptive (inline and deferred beside
+    # them, warm, in this call), journaled; invariants and the card store
+    # against the journal replayed on the CPU
+    for mode in ("inline", "deferred", "async", "adaptive"):
+        path = a_dir(f"a2_{mode}")
+        cfg = rar_system.make_rar_config(
+            shadow_mode=mode,
+            shadow_flush_every=1 if mode == "inline" else A2_FLUSH,
+            journal_path=str(path), snapshot_every=A3_SNAPSHOT)
+        seqs = []
+
+        def setup(ctrl):
+            traced_runner(ctrl, seqs)
+            if mode == "async":
+                ctrl.shadow.drain_delay = A2_DELAY
+        c = serve(cfg, setup=setup)
+        c[0].close_shadow(timeout=WAIT_S)
+        queue_invariants(f"A2 {mode}", c, seqs)
+        rec = mem.MemoryJournal.recover(str(path), cfg.memory, device=cpu)
+        same_store(c[0].memory, rec[0])
+        q = c[0].shadow
+        if (rec[1], rec[2]) != (q.buffer.epoch, q.buffer.entries_applied):
+            raise AssertionError(f"A2 {mode}: recovered epoch/entries "
+                                 f"{rec[1:3]}")
+        rates[mode if mode == "inline" else f"{mode}-{A2_FLUSH}"] = n / c[2]
+        met = c[0].metrics()
+        h = met["registry"]["shadow/drain_seconds"]
+        line = (f"A2 {mode} flush-every {cfg.shadow_flush_every}"
+                f"{f' drain_delay {A2_DELAY}s' if mode == 'async' else ''}: "
+                f"invariants hold (items {q.items_enqueued} enqueued == "
+                f"drained, once each in seq order, none pending, "
+                f"entries_applied == ptr == {q.buffer.entries_applied}, "
+                f"occupancy == store size); card store == the journal "
+                f"replayed on the CPU (epoch {rec[1]}, "
+                f"{c[0].commit_stream.journal.snapshots} snapshots); "
+                f"strong calls {sum(o.strong_calls for o in c[1])}; "
+                f"{q.drains} drains, drain seconds p50 {h['p50']:.6f} p99 "
+                f"{h['p99']:.6f}; {n / c[2]:.1f} req/s")
+        if mode == "adaptive":
+            line += f"; policy {met['drain_policy']}"
+        log(line)
+
+    # A2b: the async leg on I1's IVF plane (no journal: as in JAX the IVF
+    # plane cannot journal); the card store against its epochs' ops
+    # replayed on a CPU IVF store
+    clusters, probes = IVF_EXACT
+    cfg = rar_system.make_rar_config(shadow_mode="async",
+                                     shadow_flush_every=A2_FLUSH,
+                                     retrieval_clusters=clusters,
+                                     retrieval_probes=probes)
+    seqs, epochs = [], []
+
+    def setup_ivf(ctrl):
+        traced_runner(ctrl, seqs)
+        ctrl.shadow.drain_delay = A2_DELAY
+        ctrl.commit_stream.ops_listener = \
+            lambda e, r, s_, t, k: epochs.append((r, s_, t))
+    before = ops.launch_counts()
+    c = serve(cfg, setup=setup_ivf)
+    c[0].close_shadow(timeout=WAIT_S)
+    queue_invariants("A2b async IVF", c, seqs)
+    host = IVFMemory(mem.init_memory(cfg.memory, device=cpu),
+                     clusters=clusters, probes=probes)
+    buf = mem.CommitBuffer()
+    for r, s_, t in epochs:
+        host, _ = buf.apply_ops(host, r, s_, t)
+    same_store(c[0].memory.store, host.store)
+    card = c[0].memory
+    for f in ("_assign", "_members", "_cent"):
+        if not np.array_equal(getattr(card, f), getattr(host, f)):
+            raise AssertionError(f"A2b: IVF index {f} differs from the CPU "
+                                 f"replay")
+    got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    for k in ("ivf_route", "ivf_scan"):
+        if got[k] == 0:
+            raise AssertionError(f"A2b never launched {k}")
+    log(f"A2b async IVF {clusters} clusters / {probes} probes, flush-every "
+        f"{A2_FLUSH}: invariants hold ({len(seqs)} items); card store and "
+        f"IVF index == {len(epochs)} epochs replayed on a CPU IVF store; "
+        f"strong calls {sum(o.strong_calls for o in c[1])}; launches {got}; "
+        f"{n / c[2]:.1f} req/s")
+    log("A2 requests/s (host clock, microbatch 8, R1 workload, journaled;"
+        f" R1's first, cold inline run {ref['req_per_s']:.1f}): " +
+        ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    results["A2_req_per_s"] = rates
+
+    # A3: crash recovery on the card (async, a barrier after every batch)
+    base_cfg = dict(shadow_mode="async", shadow_flush_every=1,
+                    snapshot_every=A3_SNAPSHOT)
+    path = a_dir("a3_ref")
+    snaps = {}
+
+    def keep(ctrl):
+        ctrl.commit_stream.ops_listener = \
+            lambda e, *a: snaps.__setitem__(e, copy_store(ctrl.memory))
+    never = serve(rar_system.make_rar_config(journal_path=str(path),
+                                             **base_cfg), setup=keep,
+                  flush_each=True)
+    never[0].close_shadow(timeout=WAIT_S)
+    for kind, at in A3_CRASH.items():
+        path = a_dir(f"a3_{kind}")
+        spec = (FaultPlan.wal_crash if kind == "wal" else
+                FaultPlan.apply_crash)(at=at)
+        cfg = rar_system.make_rar_config(journal_path=str(path), **base_cfg)
+        crashed = []
+        try:
+            serve(cfg, flush_each=True, fault_plan=FaultPlan([spec]),
+                  setup=crashed.append)
+        except RuntimeError as e:
+            if not isinstance(e.__cause__, InjectedFault):
+                raise
+        else:
+            raise AssertionError(f"A3 {kind}: the injected crash never fired")
+        die(crashed[0])
+        landing = at - 1 if kind == "wal" else at
+        stream, state, man = mem.open_journaled_stream(
+            str(path), cfg.memory, snapshot_every=A3_SNAPSHOT, device=cuda)
+        stream.journal.close()
+        if stream.buffer.epoch != landing:
+            raise AssertionError(f"A3 {kind}: recovered epoch "
+                                 f"{stream.buffer.epoch}, want {landing}")
+        same_store(state, snaps[landing])
+        # the recovered controller serves the rest of the stream
+        rest = serve(cfg, start=man["now"], flush_each=True)
+        rest[0].close_shadow(timeout=WAIT_S)
+        k = man["now"]
+        if [dataclasses.astuple(o) for o in rest[1]] != \
+                [dataclasses.astuple(o) for o in never[1][k:]]:
+            raise AssertionError(f"A3 {kind}: resumed Outcomes differ from "
+                                 f"the never-crashed run's")
+        same_engines(f"A3 {kind}", rest[0], never[0], "export_counters")
+        same_store(rest[0].memory, never[0].memory)
+        for f in ("now", "guides_from_memory", "guides_generated"):
+            if getattr(rest[0], f) != getattr(never[0], f):
+                raise AssertionError(f"A3 {kind}: {f} differs")
+        log(f"A3 {kind} crash at epoch {at}: reopened on the card at epoch "
+            f"{landing} == the never-crashed store after epoch {landing}; "
+            f"the recovered controller served requests {k}..{n - 1} to the "
+            f"never-crashed Outcomes, engine stats, store and counters")
+
+    counts = ops.launch_counts()
+    log(f"A launches on the card (A1-A3): {counts}")
+    for k in ("memory_topk", "flash_attention", "decode_attention",
+              "ivf_route", "ivf_scan"):
+        if counts[k] == 0:
+            raise AssertionError(f"Phase A never launched {k}")
+    return counts, results
+
+
+def phase_a4(torch, ops, system):
+    """A4: the launcher in-process on Phase S's system, run twice on one
+    journal; the restart's controller starts from the first run's final
+    store and manifest."""
+    import json as _json
+
+    from repro_torch.core import memory as mem
+    from repro_torch.experiments import stages
+    from repro_torch.launch import serve
+
+    path, mjson = a_dir("a4"), ROOT / "build" / "phase_a" / "a4.json"
+    args = ["--device", DEV, "--microbatch", "16", "--stages", "2",
+            "--shadow-mode", "async", "--shadow-flush-every", "2",
+            "--journal-path", str(path), "--metrics-json", str(mjson),
+            "--log-every", "0"]
+    started = []
+    base = stages.MicrobatchRAR
+
+    class Recorded(base):
+        """Keeps the store and manifest it starts from, and every manifest
+        its commit stream journals."""
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            started.append((copy_store(self.memory), self._manifest_state()))
+            self.journaled, provider = [], self.commit_stream.state_provider
+
+            def journal_manifest():
+                man = provider()
+                self.journaled.append(copy.deepcopy(man))
+                return man
+            self.commit_stream.state_provider = journal_manifest
+
+    saved = (serve.build_system, stages.MicrobatchRAR)
+    serve.build_system = lambda device: system
+    stages.MicrobatchRAR = Recorded
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        first, rar1 = serve.main(args)
+        t1 = time.perf_counter()
+        man1 = rar1.journaled[-1]
+        met = _json.loads(mjson.read_text())["registry"]
+        second, rar2 = serve.main(args)
+        t2 = time.perf_counter()
+    finally:
+        serve.build_system, stages.MicrobatchRAR = saved
+    if met["shadow/items_enqueued"] != met["shadow/items_drained"]:
+        raise AssertionError(f"A4: metrics JSON enqueued "
+                             f"{met['shadow/items_enqueued']} != drained "
+                             f"{met['shadow/items_drained']}")
+    store0, man0 = started[1]
+    same_store(store0, rar1.memory)
+    if man0 != man1:
+        raise AssertionError("A4: the restart's manifest differs from the "
+                             "last one run 1 journaled")
+    rec = mem.MemoryJournal.recover(str(path), rar2.cfg.memory,
+                                    device=torch.device(DEV))
+    same_store(rec[0], rar2.memory)
+    counts = ops.launch_counts()
+    log(f"A4 launcher (async, flush-every 2, microbatch 16, 2 stages, "
+        f"journaled): run 1 strong calls {[r.strong_calls for r in first]}, "
+        f"aligned {[r.aligned for r in first]} in {t1 - t0:.1f} s; metrics "
+        f"JSON items enqueued == drained == {met['shadow/items_drained']}; "
+        f"the restart's controller started from run 1's final store (ptr "
+        f"{store0.ptr}) and the last manifest it journaled (now "
+        f"{man0['now']}, run 1 ended at {rar1.now}); run 2 strong calls"
+        f" {[r.strong_calls for r in second]} in {t2 - t1:.1f} s; its "
+        f"journal recovers its final store; launches {counts}")
+    for k in ("memory_topk", "flash_attention", "decode_attention"):
+        if counts[k] == 0:
+            raise AssertionError(f"A4 never launched {k}")
+    return counts, dict(first=rows(first), second=rows(second))
 
 
 # ---------------------------------------------------------------------------
@@ -1377,12 +1786,15 @@ def _trace_summary(torch, tag, fn, n_steps):
     fn()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    from repro_torch.kernels import ops
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = sum(ops.launch_counts().values())
     events = device_events(prof, path)
     busy, end = 0.0, float("-inf")
     for s, t in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
@@ -1411,6 +1823,11 @@ def _trace_summary(torch, tag, fn, n_steps):
         if any(k in key for k in OUR_KERNELS):
             log(f"T {tag}: port kernel {us / 1e3:.3f} ms over {n} launches "
                 f"({us / n:.2f} us each)  {key}")
+    # the trace's coverage: the port's launches it holds, against the
+    # wrappers' own count over the profiled run (all threads and streams)
+    log(f"T {tag}: port kernel launches in the trace "
+        f"{by_kind.get('port kernels', (0, 0))[0]}, counted by the wrappers "
+        f"{counted}")
 
 
 def trace(parts=("rar", "ivf", "train", "llama")) -> int:
@@ -1421,7 +1838,11 @@ def trace(parts=("rar", "ivf", "train", "llama")) -> int:
     scan's; ``train``, 10 AdamW steps of rar-weak at batch 96 and 10 Adam
     steps of the embedder (Phase S1's steps); ``llama``, llama3-8b serving
     one 130-token request with ``max_new`` 8, whose prefill and decode
-    steps are also timed apart on the host clock::
+    steps are also timed apart on the host clock; ``async`` (not in the
+    default), R1's workload at microbatch 8 served inline, deferred at
+    flush-every 4 (Phase A2's cadence) and with the async drainer at
+    flush-every 4, unjournaled and with no drain delay, barrier and
+    drainer stop included::
 
         python3 -c "import chip_smoke; chip_smoke.trace()"
     """
@@ -1440,6 +1861,18 @@ def trace(parts=("rar", "ivf", "train", "llama")) -> int:
     vocab, prompts, greqs, embs = workload()
     tiers = (init_params(rar_system.WEAK, SEEDS["weak"], device=cuda),
              init_params(rar_system.STRONG, SEEDS["strong"], device=cuda))
+    for mode, flush in ((("inline", 1), ("deferred", A2_FLUSH),
+                         ("async", A2_FLUSH)) if "async" in parts else ()):
+        cfg = rar_system.make_rar_config(shadow_mode=mode,
+                                         shadow_flush_every=flush)
+
+        def run():
+            c = serve_rar(cuda, tiers, None, MICROBATCHES[0], prompts, greqs,
+                          embs, vocab, cfg=cfg)
+            c[0].close_shadow(timeout=WAIT_S)
+        run()
+        _trace_summary(torch, f"{mode}_mb{MICROBATCHES[0]}", run,
+                       PASSES * POOL // MICROBATCHES[0])
     for mb in MICROBATCHES if "rar" in parts else ():
         def run():
             serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab)
@@ -1573,8 +2006,10 @@ def main() -> int:
     rows = phase_k(torch)
     r_counts, r_results, tiers = phase_r(torch, ops)
     i_counts, _ = phase_i(torch, ops, tiers, r_results)
+    a_counts, _ = phase_a(torch, ops, tiers, r_results)
     l_counts, _ = phase_l(torch, ops)
-    s_counts, _ = phase_s(torch, ops)
+    s_counts, s_results = phase_s(torch, ops)
+    a4_counts, _ = phase_a4(torch, ops, s_results["system"])
 
     kernels = []
     for name in SOURCES:
@@ -1584,8 +2019,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": sum(c.get(name, 0)
-                            for c in (r_counts, i_counts, l_counts,
-                                      s_counts)),
+                            for c in (r_counts, i_counts, a_counts, l_counts,
+                                      s_counts, a4_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -84,10 +84,11 @@ def make_rar_config(*, sim_threshold: float = 0.6,
     memory read to the top-k entries and ``max_guides`` (default: follow
     retrieval_k) caps how many retrieved guides are spliced into the weak
     FM's prompt. ``shadow_mode``/``shadow_flush_every``/
-    ``shadow_dedup_sim`` schedule the shadow plane (inline per batch or
-    deferred to barriers, with optional near-duplicate coalescing before
-    each drain — :mod:`repro_torch.core.shadow`); the flush cadence
-    defaults to every batch and coalescing defaults to off.
+    ``shadow_dedup_sim`` schedule the shadow plane (inline per batch,
+    deferred to barriers, on the async drainer's thread and stream, or
+    when the adaptive cost model says so, with optional near-duplicate
+    coalescing before each drain — :mod:`repro_torch.core.shadow`); the
+    flush cadence defaults to every batch and coalescing defaults to off.
     ``retrieval_clusters``/``retrieval_probes`` configure the two-level
     (IVF) retrieval plane (:mod:`repro_torch.core.memory_ivf`); 0 clusters
     (the default) keeps the exact store scan."""

@@ -136,7 +136,7 @@ class TierTimeout(TransientTierError):
 
 class InjectedTierError(TransientTierError):
     """A transient failure injected by a fault plan's ``tier_call`` spec
-    (``repro.serving.faults.FaultPlan`` in the JAX package)."""
+    (:class:`repro_torch.serving.faults.FaultPlan`)."""
 
 
 class TierUnavailableError(TierError):

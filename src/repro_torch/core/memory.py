@@ -22,13 +22,36 @@ Differences from the JAX package, by design:
 * a result's :meth:`~_MetaViews.device_get` moves ``sim`` and ``meta`` to
   the host in one ``.cpu()`` (the sims ride as int32 bit patterns).
 
-Not ported yet: the write-ahead journal (``MemoryJournal``,
-``open_journaled_stream``).
+Because the writes are in place, ordering across CUDA streams is explicit
+where JAX gets it from functional updates. Every access to a shared store
+holds the commit stream's lock (:class:`StoreLock`). A read ends on the
+host (its ``device_get``). A write (an epoch's apply, a grow, an IVF index
+refresh) ends with :func:`settle`: made on a side stream (the async
+drainer's), it is waited for on the host; made on the device's default
+stream (the serve thread's, where the inline and deferred main path runs
+everything), it is left queued, and a side-stream holder orders its stream
+after the default stream when it takes the lock. So whatever stream takes
+the lock next sees whole epochs, and the single-stream path pays no sync.
+Store tensors made on a side stream are recorded on the device's default
+stream, where the serve plane runs (:func:`publish`), so the caching
+allocator never hands their blocks out while the serve plane may still
+read them.
+
+Crash consistency: :class:`MemoryJournal` (write-ahead log + periodic
+snapshot) and :func:`open_journaled_stream`, as the JAX package's. The WAL
+frames hold host numpy and Python values only, in the JAX package's frame
+format, so a journal written on the card recovers on the CPU, and a WAL
+the JAX package wrote recovers here. The snapshot goes through
+:mod:`repro_torch.training.checkpoint`.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 import threading
+import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -38,6 +61,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.memory_topk import (DEFAULT_BLOCK_C, MASK_GUIDE,
                                              MASK_VALID, pack_meta_parts,
                                              padded_lanes, padded_rows)
+from repro_torch.serving.transport import HEADER, frame_message
+from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +114,59 @@ def init_memory(cfg: MemoryConfig, device="cuda") -> MemoryState:
         hard=torch.zeros((C,), dtype=torch.bool, device=dev),
         added_at=torch.zeros((C,), dtype=torch.int32, device=dev),
     )
+
+
+def settle(state) -> None:
+    """End a write under the store lock. On a side stream, wait for it on
+    the host, so a reader on any stream that takes the lock next sees all
+    of it. On the device's default stream, leave it queued: a reader on
+    that stream runs after it, and a side-stream holder of the lock waits
+    for the default stream first (:class:`StoreLock`)."""
+    if state.device.type == "cuda":
+        stream = torch.cuda.current_stream(state.device)
+        if stream != torch.cuda.default_stream(state.device):
+            stream.synchronize()
+
+
+class StoreLock:
+    """The re-entrant lock around a shared store. A holder whose current
+    CUDA stream is not the default one (the async drainer) makes its
+    stream wait for the default stream's queued work when it takes the
+    lock, so it sees the writes that :func:`settle` left queued there."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        got = self._lock.acquire(blocking, timeout)
+        if got and torch.cuda.is_initialized():
+            stream = torch.cuda.current_stream()
+            default = torch.cuda.default_stream(stream.device)
+            if stream != default:
+                stream.wait_stream(default)
+        return got
+
+    def release(self) -> None:
+        self._lock.release()
+
+    def __enter__(self) -> bool:
+        return self.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+def publish(*tensors: torch.Tensor) -> None:
+    """Tensors made for a store on a side stream (the async drainer's):
+    record them on the device's default stream, where the serve plane
+    reads, so the caching allocator does not reuse their blocks before the
+    default stream's work on them is done."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            continue
+        default = torch.cuda.default_stream(t.device)
+        if torch.cuda.current_stream(t.device) != default:
+            t.record_stream(default)
 
 
 def _on(state: MemoryState, x, dtype) -> torch.Tensor:
@@ -180,6 +258,7 @@ def grow_memory(state: MemoryState, new_capacity: int
     fresh.hard[:C] = state.hard[order]
     fresh.added_at[:C] = state.added_at[order]
     fresh.ptr = new_ptr
+    publish(fresh.emb, fresh.mask, fresh.guide, fresh.hard, fresh.added_at)
     return fresh, remap.to(torch.int32)
 
 
@@ -302,7 +381,7 @@ def query_topk_batch(state, embs, k: int,
 
 
 # ---------------------------------------------------------------------------
-# Epoch-versioned commit buffer and the commit stream
+# Epoch-versioned commit buffer
 # ---------------------------------------------------------------------------
 
 
@@ -411,17 +490,246 @@ def _po2_runs(seq):
         i += step
 
 
+# ---------------------------------------------------------------------------
+# Write-ahead journal: crash-consistent persistence of the commit stream
+# ---------------------------------------------------------------------------
+
+
+class JournalCorruptionWarning(UserWarning):
+    """A WAL replay hit a torn or corrupt frame and stopped there; carries
+    where (``offset``) and why (``reason``)."""
+
+    def __init__(self, path: str, offset: int, reason: str):
+        super().__init__(f"WAL replay stopped at byte {offset} of "
+                         f"{path}: {reason}")
+        self.path = path
+        self.offset = offset
+        self.reason = reason
+
+
+def _host(x):
+    """A record field as a host value (numpy), whatever device it is on."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _state_tree(state: MemoryState) -> dict:
+    return {"emb": state.emb, "mask": state.mask, "guide": state.guide,
+            "hard": state.hard, "added_at": state.added_at,
+            "ptr": np.asarray(state.ptr, np.int64)}
+
+
+class MemoryJournal:
+    """Epoch-granular write-ahead journal and periodic snapshot of one
+    commit stream's store, the JAX ``MemoryJournal``'s protocol.
+
+    Layout: ``<dir>/wal.log`` (frames of :mod:`repro_torch.serving.
+    transport`, one an epoch: its taken ops as host values, its number and
+    the engine-state manifest), ``<dir>/snapshot.npz`` (the store and the
+    buffer counters through :mod:`repro_torch.training.checkpoint`) and
+    ``<dir>/manifest.pkl`` (the manifest as of the snapshot).
+
+    An epoch's ops are written and fsynced **before** they are applied
+    (:meth:`CommitStream.apply`): a crash before the write loses the epoch
+    (recovery lands on the one before), a crash after it recovers with it
+    (one epoch ahead of the dead process's store); never a torn state.
+    Every ``snapshot_every`` epochs the store is snapshotted atomically and
+    the WAL truncated; records carry their epoch number, so a crash between
+    the two is harmless. :meth:`recover` replays surviving epochs through
+    :meth:`CommitBuffer.apply_ops`, the path live drains take, and stops
+    at a torn or corrupt frame with a :class:`JournalCorruptionWarning`.
+    Only the plain :class:`MemoryState` store is journalable.
+    """
+
+    def __init__(self, path: str, *, snapshot_every: int = 8,
+                 fault_plan=None):
+        if snapshot_every < 1:
+            raise ValueError(f"snapshot_every must be >= 1, "
+                             f"got {snapshot_every}")
+        os.makedirs(path, exist_ok=True)
+        self.path = path
+        self.wal_path = os.path.join(path, "wal.log")
+        self.snap_path = os.path.join(path, "snapshot.npz")
+        self.manifest_path = os.path.join(path, "manifest.pkl")
+        self.snapshot_every = snapshot_every
+        self.fault_plan = fault_plan
+        self._wal = open(self.wal_path, "ab")
+        self.epochs_logged = 0
+        self.snapshots = 0
+
+    @staticmethod
+    def _read_records(path):
+        """Yield the payloads of a WAL file; stop with a warning at the
+        first torn or corrupt frame (a clean end is silent)."""
+        if not os.path.exists(path):
+            return
+        with open(path, "rb") as f:
+            data = f.read()
+        offset = 0
+        while offset < len(data):
+            head = data[offset:offset + HEADER.size]
+            if len(head) < HEADER.size:
+                warnings.warn(JournalCorruptionWarning(
+                    path, offset, f"torn header ({len(head)} of "
+                                  f"{HEADER.size} bytes)"))
+                return
+            length, crc = HEADER.unpack(head)
+            start = offset + HEADER.size
+            payload = data[start:start + length]
+            if len(payload) < length:
+                warnings.warn(JournalCorruptionWarning(
+                    path, offset, f"torn payload ({len(payload)} of "
+                                  f"{length} bytes)"))
+                return
+            if zlib.crc32(payload) & 0xFFFFFFFF != crc:
+                warnings.warn(JournalCorruptionWarning(
+                    path, offset, "crc mismatch"))
+                return
+            yield pickle.loads(payload)
+            offset = start + length
+
+    def _append(self, record: dict) -> None:
+        self._wal.write(frame_message(record))
+        self._wal.flush()
+        os.fsync(self._wal.fileno())
+        self.epochs_logged += 1
+
+    def log_epoch(self, epoch: int, records, soft_clears, touches,
+                  manifest: dict | None = None) -> None:
+        """Make one epoch's ops durable (write, flush, fsync). The
+        ``wal_write`` fault site fires before the write. ``manifest`` rides
+        in the same frame, so store and engine state are durable
+        together."""
+        if self.fault_plan is not None:
+            self.fault_plan.fire("wal_write", epoch=epoch)
+        host_records = [(now, _host(emb), _host(g).astype(np.int32),
+                         bool(hg), bool(hard))
+                        for now, emb, g, hg, hard in records]
+        self._append({"epoch": int(epoch), "records": host_records,
+                      "soft_clears": list(soft_clears),
+                      "touches": list(touches), "manifest": manifest})
+
+    def log_checkpoint(self, epoch: int, manifest: dict) -> None:
+        """Journal a manifest-only record as of the current epoch (clean
+        shutdown): replay takes the manifest and applies nothing."""
+        self._append({"epoch": int(epoch), "checkpoint": True,
+                      "manifest": manifest})
+
+    def maybe_snapshot(self, state, buffer: CommitBuffer,
+                       manifest: dict | None = None) -> None:
+        if buffer.epoch % self.snapshot_every == 0:
+            self.snapshot(state, buffer, manifest)
+
+    def snapshot(self, state, buffer: CommitBuffer,
+                 manifest: dict | None = None) -> None:
+        """Snapshot the store and the buffer counters atomically, then
+        truncate the WAL. The manifest lands first (tmpfile +
+        ``os.replace``): dying between the two leaves the WAL's own
+        manifests covering every epoch past the snapshot."""
+        if manifest is not None:
+            tmp = self.manifest_path + ".tmp"
+            with open(tmp, "wb") as f:
+                pickle.dump({"epoch": int(buffer.epoch),
+                             "manifest": manifest}, f, protocol=4)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.manifest_path)
+        save_checkpoint(self.snap_path, {
+            "state": _state_tree(state),
+            "meta": np.asarray([buffer.epoch, buffer.entries_applied],
+                               np.int64)})
+        self._wal.close()
+        self._wal = open(self.wal_path, "wb")   # truncate
+        self._wal.flush()
+        os.fsync(self._wal.fileno())
+        self.snapshots += 1
+
+    def close(self) -> None:
+        if not self._wal.closed:
+            self._wal.close()
+
+    def stats(self) -> dict:
+        return {"epochs_logged": self.epochs_logged,
+                "snapshots": self.snapshots}
+
+    @staticmethod
+    def recover(path: str, mem_cfg: MemoryConfig, device="cuda"):
+        """Rebuild the store from ``path`` on ``device`` after a crash.
+
+        Returns ``(state, epoch, entries_applied, manifest)`` (the newest
+        manifest consistent with the recovered store, None if none was
+        journaled), or None for a fresh directory. Replays every complete
+        WAL record newer than the snapshot, in file order."""
+        dev = resolve_device(device)
+        snap_path = os.path.join(path, "snapshot.npz")
+        wal_path = os.path.join(path, "wal.log")
+        man_path = os.path.join(path, "manifest.pkl")
+        have_snap = os.path.exists(snap_path)
+        have_wal = os.path.exists(wal_path) and \
+            os.path.getsize(wal_path) > 0
+        if not have_snap and not have_wal:
+            return None
+        manifest = None
+        if have_snap:
+            tree = load_checkpoint(snap_path, device=dev)
+            st = tree["state"]
+            state = MemoryState(emb=st["emb"], mask=st["mask"],
+                                guide=st["guide"], hard=st["hard"],
+                                added_at=st["added_at"],
+                                ptr=int(st["ptr"]))
+            epoch, entries = (int(x) for x in tree["meta"].tolist())
+            if os.path.exists(man_path):
+                with open(man_path, "rb") as f:
+                    manifest = pickle.load(f)["manifest"]
+        else:
+            state, epoch, entries = init_memory(mem_cfg, device=dev), 0, 0
+        replay = CommitBuffer()
+        replay.epoch, replay.entries_applied = epoch, entries
+        for rec in MemoryJournal._read_records(wal_path):
+            if rec.get("checkpoint"):
+                if rec["epoch"] >= replay.epoch:
+                    manifest = rec["manifest"]
+                continue                      # manifest only, no ops
+            if rec["epoch"] <= epoch:
+                continue                      # the snapshot covers it
+            state, _ = replay.apply_ops(state, rec["records"],
+                                        rec["soft_clears"], rec["touches"])
+            replay.epoch = rec["epoch"]
+            if rec.get("manifest") is not None:
+                manifest = rec["manifest"]
+        return state, replay.epoch, replay.entries_applied, manifest
+
+
+# ---------------------------------------------------------------------------
+# Commit stream: the serve/learn interface around the commit buffer
+# ---------------------------------------------------------------------------
+
+
 class CommitStream:
     """The serve/learn commit interface: one :class:`CommitBuffer`, the
     lock that serializes applies against snapshot reads, the single host
     counter of committed entries, and the subscribed controller views
-    that receive every applied store."""
+    that receive every applied store.
 
-    def __init__(self, buffer: CommitBuffer | None = None):
+    With a :class:`MemoryJournal` the stream is crash-consistent: each
+    epoch is journaled (write-ahead, fsynced) before its apply, with the
+    ``state_provider``'s engine-state manifest in the same frame, and the
+    store is snapshotted periodically. A fault plan fires at the
+    ``wal_write`` / ``commit_apply`` boundary."""
+
+    def __init__(self, buffer: CommitBuffer | None = None, *,
+                 journal: MemoryJournal | None = None, fault_plan=None):
         self.buffer = buffer if buffer is not None else CommitBuffer()
-        self.lock = threading.RLock()
+        self.lock = StoreLock()
         self.commits = 0
         self._views: list = []
+        self.journal = journal
+        self.fault_plan = fault_plan
+        # engine-state exporter (set by the owning controller), called
+        # under the lock right before an epoch is journaled
+        self.state_provider = None
+        # per-epoch ops tap: called under the lock after each apply with
+        # (epoch, records, soft_clears, touches, entries)
+        self.ops_listener = None
 
     def subscribe(self, view) -> None:
         if view not in self._views:
@@ -434,15 +742,34 @@ class CommitStream:
 
     def apply(self, state):
         """Apply the staged epoch and broadcast the store to every view
-        under one lock hold. Returns the store."""
+        under one lock hold; with a journal, the epoch is durable before
+        the apply and the ``commit_apply`` fault site fires between the
+        two. The write ends with :func:`settle` before the lock is
+        released. Returns the store."""
         with self.lock:
             if not self.buffer.pending:
                 return state
-            state, n = self.buffer.apply(state)
+            records, soft_clears, touches = self.buffer.take_ops()
+            epoch = self.buffer.epoch + 1
+            manifest = None
+            if self.journal is not None:
+                if self.state_provider is not None:
+                    manifest = self.state_provider()
+                self.journal.log_epoch(epoch, records, soft_clears,
+                                       touches, manifest)
+            if self.fault_plan is not None:
+                self.fault_plan.fire("commit_apply", epoch=epoch)
+            state, n = self.buffer.apply_ops(state, records, soft_clears,
+                                             touches)
+            settle(state)
             self.commits += n
             for v in self._views:
                 v.memory = state
                 v.commit_epoch_seen = self.buffer.epoch
+            if self.ops_listener is not None:
+                self.ops_listener(epoch, records, soft_clears, touches, n)
+            if self.journal is not None:
+                self.journal.maybe_snapshot(state, self.buffer, manifest)
         return state
 
     def grow(self, state, new_capacity: int):
@@ -458,8 +785,53 @@ class CommitStream:
                 state, remap = grow_memory(state, new_capacity)
             else:
                 state, remap = state.grow(new_capacity)
+            settle(state)
             for v in self._views:
                 v.memory = state
                 if hasattr(v, "_ptr_base"):
                     v._ptr_base = state.ptr - self.commits
             return state, remap
+
+    def checkpoint(self) -> None:
+        """Journal a manifest-only record at the current epoch (clean
+        shutdown); a no-op without a journal or a state provider."""
+        with self.lock:
+            if self.journal is None or self.state_provider is None:
+                return
+            self.journal.log_checkpoint(self.buffer.epoch,
+                                        self.state_provider())
+
+    def commit_direct(self, state, *, record=None, soft_clear=None,
+                      touch_op=None):
+        """Commit the sequential controller's per-request write as one
+        single-op epoch through the journaled path. ``record`` is a
+        ``stage_add`` tuple ``(emb, guide, has_guide, hard, now)``;
+        ``soft_clear``/``touch_op`` are ``(index, now, ptr_snapshot)``.
+        Returns the store."""
+        with self.lock:
+            if record is not None:
+                self.buffer.stage_add(*record)
+            if soft_clear is not None:
+                self.buffer.stage_soft_clear(*soft_clear)
+            if touch_op is not None:
+                self.buffer.stage_touch(*touch_op)
+            return self.apply(state)
+
+
+def open_journaled_stream(path: str, mem_cfg: MemoryConfig, *,
+                          snapshot_every: int = 8, fault_plan=None,
+                          device="cuda"):
+    """Open (or re-open after a crash) a journaled commit stream at
+    ``path``. Returns ``(stream, recovered_state, manifest)``, both None
+    for a fresh directory; the recovered store lives on ``device`` and the
+    buffer counters resume from the recovered epoch."""
+    recovered = MemoryJournal.recover(path, mem_cfg, device=device)
+    journal = MemoryJournal(path, snapshot_every=snapshot_every,
+                            fault_plan=fault_plan)
+    stream = CommitStream(journal=journal, fault_plan=fault_plan)
+    state, manifest = None, None
+    if recovered is not None:
+        state, epoch, entries, manifest = recovered
+        stream.buffer.epoch = epoch
+        stream.buffer.entries_applied = entries
+    return stream, state, manifest

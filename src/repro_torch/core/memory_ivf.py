@@ -310,7 +310,10 @@ class IVFMemory:
     def _refresh(self) -> None:
         """Lazy upload of the device mirrors: the centroid plane in the
         padded kernel layout and the member/assign tables. O(P * Ep +
-        P * M) once per index mutation, off the per-query path."""
+        P * M) once per index mutation, off the per-query path. It runs
+        under the store lock on whichever thread reads first (the async
+        drainer's stream too), so it ends as every store write does:
+        published to the serve stream and settled (:func:`mem.settle`)."""
         if not self._dirty:
             return
         P, Ep, dev = self.clusters, self._ep, self.device
@@ -324,6 +327,8 @@ class IVFMemory:
                        torch.arange(P, dtype=torch.int32, device=dev))
         self._members_dev = torch.from_numpy(self._members).to(dev)
         self._assign_dev = torch.from_numpy(self._assign).to(dev)
+        mem.publish(*self._plane, self._members_dev, self._assign_dev)
+        mem.settle(self)
         self._dirty = False
 
     # -- reads ----------------------------------------------------------

@@ -17,7 +17,9 @@ routing semantics of the sequential :class:`repro_torch.core.rar.RAR`
    decode attention steps);
 5. hand the shadow items to the :class:`~repro_torch.core.shadow.ShadowQueue`;
    the drain runs the weak-alone, guide-from-memory and fresh-guide sweeps
-   and lands one commit epoch through the commit stream.
+   and lands one commit epoch through the commit stream: inline, at
+   barriers (``deferred``, ``adaptive``), or on the async drainer's thread
+   and CUDA stream.
 
 Within a microbatch every read sees the store at step start and writes
 commit at drain-epoch end; at B = 1 with inline drains this is exactly
@@ -32,6 +34,7 @@ from repro_torch.core import memory as mem
 from repro_torch.core import shadow as shq
 from repro_torch.core.fm import TierUnavailableError
 from repro_torch.core.rar import RAR, Outcome, select_guides, splice_guides
+from repro_torch.serving.metrics import MetricsRegistry
 
 
 def _answers(tier, prompts: list[np.ndarray]) -> np.ndarray:
@@ -64,26 +67,65 @@ class MicrobatchRAR(RAR):
         # optional (prompts) -> (B, E) embedder: one call per microbatch
         # instead of ``embed_fn`` once per prompt
         self.embed_batch_fn = embed_batch_fn
-        # the shadow queue stages into (and locks against) the commit
-        # stream
-        self.shadow = shq.ShadowQueue(
-            runner=self._drain_shadow, mode=self.cfg.shadow_mode,
-            flush_every=self.cfg.shadow_flush_every,
-            buffer=self.commit_stream.buffer,
-            store_lock=self.commit_stream.lock, fault_plan=self.fault_plan)
+        self.metrics_registry = self._metrics_registry()
+        self.shadow = self._make_shadow_queue()
+
+    def _metrics_registry(self) -> MetricsRegistry:
+        """The registry the shadow queue mirrors its stats into (a private
+        one for a standalone controller)."""
+        return MetricsRegistry()
+
+    def _metrics_prefix(self) -> str:
+        return "shadow/"
+
+    def _drain_policy(self):
+        """Drain policy for ``shadow_mode="adaptive"``; None lets the queue
+        build a private :class:`~repro_torch.core.shadow.
+        AdaptiveDrainPolicy`."""
+        return None
+
+    def _make_shadow_queue(self) -> shq.ShadowQueue:
+        """The controller's shadow queue, staged into (and locked against)
+        the commit stream, on the store's device."""
+        return shq.ShadowQueue(runner=self._drain_shadow,
+                               mode=self.cfg.shadow_mode,
+                               flush_every=self.cfg.shadow_flush_every,
+                               buffer=self.commit_stream.buffer,
+                               store_lock=self.commit_stream.lock,
+                               fault_plan=self.fault_plan,
+                               metrics=self.metrics_registry,
+                               metrics_prefix=self._metrics_prefix(),
+                               drain_policy=self._drain_policy(),
+                               device=self.memory.device)
+
+    def metrics(self) -> dict:
+        """Host-side metrics snapshot: the registry, commit-stream progress
+        and (adaptive mode) the drain policy's fitted cost model. No
+        device sync."""
+        out = {"registry": self.metrics_registry.snapshot(),
+               "commit": {"epoch": self.commit_stream.buffer.epoch,
+                          "entries_applied":
+                              self.commit_stream.buffer.entries_applied,
+                          "commits": self.commit_stream.commits}}
+        if self.shadow.drain_policy is not None:
+            out["drain_policy"] = self.shadow.drain_policy.stats()
+        return out
 
     # ------------------------------------------------------------------
     def flush_shadow(self, timeout: float | None = None) -> None:
         """Barrier: drain all pending shadow items and apply their
         commits; every outstanding Outcome is resolved on return (except
         probes deferred behind a still-open breaker, which stay
-        parked)."""
+        parked). ``timeout`` bounds the wait for the async drainer."""
         self.replay_deferred()
         self.shadow.flush(timeout=timeout)
 
-    def close_shadow(self) -> None:
+    def close_shadow(self, timeout: float | None = 60) -> None:
+        """Flush and stop the drainer. As in the JAX package, the batched
+        controller journals no closing checkpoint: a journal's last
+        manifest is that of its last commit epoch."""
         self.replay_deferred()
-        self.shadow.close()
+        self.shadow.close(timeout=timeout)
 
     def replay_deferred(self, force: bool = False) -> int:
         """Batched replay of probes deferred during a strong-tier

@@ -12,8 +12,12 @@ that owns the FM calls and the store writes, and
 :class:`repro_torch.core.pipeline.MicrobatchRAR` batches it.
 
 With ``retrieval_clusters > 0`` the store is wrapped in the IVF
-two-level read (:mod:`repro_torch.core.memory_ivf`). Not ported yet: the
-write-ahead journal (``journal_path``); the controller refuses it.
+two-level read (:mod:`repro_torch.core.memory_ivf`). With ``journal_path``
+a standalone controller opens (or re-opens after a crash) a journaled
+commit stream (:func:`repro_torch.core.memory.open_journaled_stream`): its
+store and its engine state (clock, RQ2 counters, tier and engine counters,
+parked probes) ride in every write-ahead epoch and come back on re-open,
+so resumed serving equals a run that never crashed.
 """
 from __future__ import annotations
 
@@ -253,9 +257,6 @@ class RAR:
                  aligned_fn: Callable[[int, int], bool] | None = None,
                  memory=None, commit_stream: mem.CommitStream | None = None,
                  fault_plan=None, device="cuda"):
-        if cfg.journal_path is not None:
-            raise NotImplementedError("journal_path: the write-ahead "
-                                      "journal is not ported yet (ROADMAP)")
         if cfg.tier_resilience:
             policy = retry_policy(cfg)
             if not isinstance(weak, ResilientTier):
@@ -271,8 +272,19 @@ class RAR:
         self.route_weak_fn = route_weak_fn
         self.cfg = cfg
         self.aligned_fn = aligned_fn or (lambda a, b: a == b and a >= 0)
+        # crash-consistent memory: only a standalone controller opens its
+        # journal (an injected commit stream owns its own)
+        recovered, manifest = None, None
+        standalone_journal = (cfg.journal_path is not None
+                              and commit_stream is None)
+        if standalone_journal:
+            commit_stream, recovered, manifest = mem.open_journaled_stream(
+                cfg.journal_path, cfg.memory,
+                snapshot_every=cfg.snapshot_every, fault_plan=fault_plan,
+                device=device)
         if memory is None:
-            memory = mem.init_memory(cfg.memory, device=device)
+            memory = recovered if recovered is not None \
+                else mem.init_memory(cfg.memory, device=device)
         elif (memory.capacity != cfg.memory.capacity
               or memory.guide.shape[1] != cfg.memory.guide_len):
             raise ValueError(
@@ -294,7 +306,17 @@ class RAR:
         self.commit_stream = (commit_stream if commit_stream is not None
                               else mem.CommitStream())
         self.commit_stream.subscribe(self)
+        if self.commit_stream.journal is not None and \
+                not isinstance(self.memory, mem.MemoryState):
+            raise ValueError("journal_path requires the plain MemoryState "
+                             "store")
+        # a recovered store's writes are inside ptr already; the stream's
+        # counter only counts commits made after recovery
         self._ptr_base = self.memory.ptr
+        if standalone_journal:
+            self.commit_stream.state_provider = self._manifest_state
+            if manifest is not None:
+                self._restore_manifest(manifest)
 
     # ------------------------------------------------------------------
     @property
@@ -309,7 +331,46 @@ class RAR:
         self.replay_deferred()
 
     def close_shadow(self) -> None:
+        """Flush, and journal a manifest-only checkpoint, so engine state
+        that advanced past the last store commit survives a later kill."""
         self.replay_deferred()
+        self.commit_stream.checkpoint()
+
+    # -- full-state crash consistency (recovery manifest) ---------------
+    def _manifest_state(self) -> dict:
+        """Engine state journaled with every WAL epoch, host values only
+        (the store is the WAL's and the snapshot's; occupancy is rebuilt
+        from the recovered ring pointer)."""
+        man = {"now": self.now,
+               "guides_from_memory": self.guides_from_memory,
+               "guides_generated": self.guides_generated,
+               "probes_deferred": self.probes_deferred,
+               "probes_replayed": self.probes_replayed,
+               "deferred_probes": list(self.deferred_probes),
+               "tiers": {}, "engines": {}}
+        for name, tier in (("weak", self.weak), ("strong", self.strong)):
+            if isinstance(tier, ResilientTier):
+                man["tiers"][name] = tier.export_state()
+            engine = getattr(tier, "engine", None)
+            if hasattr(engine, "export_counters"):
+                man["engines"][name] = engine.export_counters()
+        return man
+
+    def _restore_manifest(self, man: dict) -> None:
+        self.now = man["now"]
+        self.guides_from_memory = man["guides_from_memory"]
+        self.guides_generated = man["guides_generated"]
+        self.probes_deferred = man["probes_deferred"]
+        self.probes_replayed = man["probes_replayed"]
+        self.deferred_probes = list(man["deferred_probes"])
+        for name, tier in (("weak", self.weak), ("strong", self.strong)):
+            if isinstance(tier, ResilientTier) and \
+                    name in man.get("tiers", {}):
+                tier.restore_state(man["tiers"][name])
+            engine = getattr(tier, "engine", None)
+            if hasattr(engine, "restore_counters") and \
+                    name in man.get("engines", {}):
+                engine.restore_counters(man["engines"][name])
 
     def _strong_ok(self) -> bool:
         """The strong tier's availability (circuit breaker peek)."""
@@ -467,23 +528,37 @@ class RAR:
             """Apply the stage's resolution: store effects (add, then
             flag moves — the sequential write order) + RQ2 counters."""
             res = decisions.resolve_shadow_case(stage, reprobe)
+            # counters first: a journaled commit writes the manifest
             if res.guide_source == "memory":
                 self.guides_from_memory += 1
             elif res.guide_source == "fresh":
                 self.guides_generated += 1
-            if res.record:
-                self.memory = mem.add(self.memory, emb, guide,
-                                      np.asarray(res.has_guide),
-                                      np.asarray(res.hard),
-                                      np.int32(now))
-                self.commit_stream.count(1)
-            if res.clear_hard:
-                self.memory = mem.mark_soft(self.memory,
-                                            np.int32(reprobe_index))
-            if res.touch:
-                self.memory = mem.touch(self.memory,
-                                        np.int32(reprobe_index),
-                                        np.int32(now))
+            if self.commit_stream.journal is not None:
+                # one single-op epoch through the write-ahead path (its
+                # K=1 add_batch is the same write as add)
+                record = ((emb, guide, res.has_guide, res.hard, now)
+                          if res.record else None)
+                soft = ((reprobe_index, now, None) if res.clear_hard
+                        else None)
+                tch = ((reprobe_index, now, None) if res.touch else None)
+                if record or soft or tch:
+                    self.memory = self.commit_stream.commit_direct(
+                        self.memory, record=record, soft_clear=soft,
+                        touch_op=tch)
+            else:
+                if res.record:
+                    self.memory = mem.add(self.memory, emb, guide,
+                                          np.asarray(res.has_guide),
+                                          np.asarray(res.hard),
+                                          np.int32(now))
+                    self.commit_stream.count(1)
+                if res.clear_hard:
+                    self.memory = mem.mark_soft(self.memory,
+                                                np.int32(reprobe_index))
+                if res.touch:
+                    self.memory = mem.touch(self.memory,
+                                            np.int32(reprobe_index),
+                                            np.int32(now))
             if outcome is None:
                 return Outcome(strong_ans, "strong", strong_calls,
                                res.case, guide_source=res.guide_source)

@@ -10,10 +10,10 @@ reported mean±std over shuffles (:func:`aggregate_shuffles`).
 Ported: the sequential stream (``RAR.process``, ``microbatch=1``) and the
 batched data plane (``MicrobatchRAR.process_batch``), the
 ``retrieval_k``/``max_guides`` overrides, the RQ2 warm-up
-(``prepopulate_from``), the inline and deferred shadow modes and
-``progress_every``. Refused, each naming its ROADMAP item: serve replicas
-and transports, fault plans, open-loop arrivals, ``metrics_every``, and
-the async/adaptive shadow modes.
+(``prepopulate_from``), every shadow mode (inline, deferred, async,
+adaptive), fault plans, ``progress_every`` and ``metrics_every``. Refused,
+naming ROADMAP queue 1 item 5 (the serving fabrics): serve replicas,
+the process transport and open-loop arrivals.
 """
 from __future__ import annotations
 
@@ -56,24 +56,14 @@ def _batched_answers(tier, prompts: list[np.ndarray]) -> np.ndarray:
     return tier.answer_batch(np.stack(prompts))
 
 
-def _refuse_unported(replicas, transport, fault_plan, arrival_pattern,
-                     metrics_every, shadow_mode) -> None:
+def _refuse_unported(replicas, transport, arrival_pattern) -> None:
     if replicas > 1 or transport != "thread":
         raise NotImplementedError("replicas/transport: the serving fabrics "
                                   "are not ported (ROADMAP queue 1 item 5)")
-    if fault_plan is not None:
-        raise NotImplementedError("fault_plan: fault injection is not "
-                                  "ported (ROADMAP queue 1 item 5)")
     if arrival_pattern not in (None, "closed"):
         raise NotImplementedError("open-loop arrivals: the scheduler and "
                                   "load generator are not ported (ROADMAP "
                                   "queue 1 item 5)")
-    if metrics_every:
-        raise NotImplementedError("metrics_every: the metrics registry is "
-                                  "not ported (ROADMAP queue 1 item 5)")
-    if shadow_mode in ("async", "adaptive"):
-        raise NotImplementedError(f"shadow_mode={shadow_mode!r} is not "
-                                  f"ported (ROADMAP queue 1 item 3)")
 
 
 # ---------------------------------------------------------------------------
@@ -120,12 +110,17 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
     flush barrier runs at every stage end, so per-stage results are exact
     in every shadow mode.
 
+    ``fault_plan``: a :class:`repro_torch.serving.faults.FaultPlan`
+    threaded into the controller (tier errors and delays, drain and
+    journal faults); None is a no-op. The resilience knobs (retries,
+    breaker, journal) live on ``rar_cfg``.
+
     ``progress_every``: print a throughput/memory-occupancy line every N
     served requests (0 = off), off the controller's host-side commit
-    counter (no device sync).
+    counter (no device sync). ``metrics_every``: print a one-line summary
+    of the controller's host-side ``metrics()`` every N served requests.
     """
-    _refuse_unported(replicas, transport, fault_plan, arrival_pattern,
-                     metrics_every, shadow_mode)
+    _refuse_unported(replicas, transport, arrival_pattern)
     dev = resolve_device(device)
     if system.weak.engine.device.type != dev.type:
         raise ValueError(f"the system lives on {system.weak.engine.device}, "
@@ -175,7 +170,7 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
 
     controller_cls = MicrobatchRAR if microbatch > 1 else RAR
     rar = controller_cls(system.weak, strong, embed_fn, route_fn, rar_cfg,
-                         device=dev)
+                         fault_plan=fault_plan, device=dev)
 
     if prepopulate_from is not None:
         pre_prompts, pre_greqs = _prompts(system, prepopulate_from)
@@ -209,6 +204,23 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
                   f"memory {rar.memory_occupancy}/"
                   f"{rar.cfg.memory.capacity}", flush=True)
 
+    def metrics_line(batch: int) -> None:
+        """Periodic one-line summary of the controller's host-side
+        ``metrics()`` snapshot, at the served-counter cadence."""
+        if not metrics_every or not hasattr(rar, "metrics"):
+            return
+        if served // metrics_every <= (served - batch) // metrics_every:
+            return
+        met = rar.metrics()
+        commit = met.get("commit", {})
+        line = (f"      [metrics] epoch {commit.get('epoch', 0)}, "
+                f"entries {commit.get('entries_applied', 0)}")
+        pol = met.get("drain_policy")
+        if pol:
+            line += (f", policy drains {pol.get('cost_drains', 0)}cost"
+                     f"+{pol.get('coldstart_drains', 0)}cold")
+        print(line, flush=True)
+
     results = []
     for stage in range(n_stages):
         t_stage = time.perf_counter()
@@ -237,6 +249,7 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
                     keys=chunk, embs=embs[chunk])
                 stage_outs += zip(chunk, outs)
                 progress(len(chunk))
+                metrics_line(len(chunk))
             # stage-end barrier: deferred shadow outcomes are provisional
             # until their drain; flush before tallying (no-op inline)
             rar.flush_shadow()
@@ -248,6 +261,7 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
                 out = rar.process(prompts[int(i)], greqs[int(i)], key=int(i))
                 tally(int(i), out)
                 progress(1)
+                metrics_line(1)
         results.append(StageResult(
             n=len(pool), aligned=aligned, strong_calls=strong_calls,
             guides_from_memory=gmem, guides_fresh=gfresh, cases=cases))

@@ -30,6 +30,20 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
+#: guards the wrappers' launch counters (the serve thread and the async
+#: shadow drainer launch concurrently) and :data:`STREAM_LAUNCHES`
+COUNT_LOCK = threading.Lock()
+#: launches by (kernel, CUDA stream handle) since the last reset
+STREAM_LAUNCHES: dict[tuple[str, int], int] = {}
+
+
+def note_stream(kernel: str, stream: int) -> None:
+    """Count one launch of ``kernel`` on ``stream``; call under
+    :data:`COUNT_LOCK`, beside the wrapper's own counter."""
+    key = (kernel, stream)
+    STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float

@@ -119,5 +119,7 @@ def decode_attention_cuda(q, k, v, cache_len, *, window: int = 0,
         None if ws is None else ws.data_ptr(),
         None if tickets is None else tickets.data_ptr(), stream)
     _build.check(err, "decode_attention_fwd")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        _build.note_stream("decode_attention", stream)
     return out

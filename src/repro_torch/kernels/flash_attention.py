@@ -88,11 +88,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError("kv_len must be (B,) int32 on q's device")
     s = scale if scale is not None else hd ** -0.5
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if kv_len is None else kv_len.data_ptr(), B, Sq, Sk, H, KV, hd,
-        int(causal), int(window), float(s), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(causal), int(window), float(s), _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_fwd")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        _build.note_stream("flash_attention", stream)
     return out

@@ -93,7 +93,9 @@ def ivf_route_batch_padded_cuda(cent, qs, cmask, n_probe: int,
         B, n_probe, required, tickets.data_ptr(), lists.data_ptr(),
         lists.numel(), out_s.data_ptr(), out_r.data_ptr(), stream)
     _build.check(err, "ivf_route_batch_padded")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        _build.note_stream("ivf_route", stream)
     return out_s, out_r
 
 
@@ -238,5 +240,7 @@ def ivf_scan_batch_cuda(scores, cids, cidmap, members, assign, emb, mask,
         0 if lists is None else lists.numel(), out_s.data_ptr(),
         out_meta.data_ptr(), stream)
     _build.check(err, "ivf_scan_batch")
-    scan_launches += 1
+    with _build.COUNT_LOCK:
+        scan_launches += 1
+        _build.note_stream("ivf_scan", stream)
     return out_s, out_meta

@@ -441,7 +441,9 @@ def memory_topk_batch_padded_cuda(mem, qs, mask, k: int,
         0 if cand_s is None else cand_s.numel(), out_s.data_ptr(),
         out_r.data_ptr(), stream)
     _build.check(err, "memory_topk_batch_padded")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        _build.note_stream("memory_topk", stream)
     return out_s, out_r
 
 
@@ -464,5 +466,7 @@ def memory_top1_batch_padded_cuda(mem, qs, mask, required: int = MASK_VALID):
         required, state.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
         stream)
     _build.check(err, "memory_top1_batch_padded")
-    top1_launches += 1
+    with _build.COUNT_LOCK:
+        top1_launches += 1
+        _build.note_stream("memory_top1", stream)
     return out_s, out_r

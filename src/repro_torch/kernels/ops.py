@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import memory_ivf as _ivf
@@ -57,8 +58,16 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    for mod, attr in KERNELS.values():
-        setattr(mod, attr, 0)
+    with _build.COUNT_LOCK:
+        for mod, attr in KERNELS.values():
+            setattr(mod, attr, 0)
+        _build.STREAM_LAUNCHES.clear()
+
+
+def stream_launches() -> dict[tuple[str, int], int]:
+    """Launches by (kernel, CUDA stream handle) since the last reset."""
+    with _build.COUNT_LOCK:
+        return dict(_build.STREAM_LAUNCHES)
 
 
 def memory_top1_batch_padded(mem, qs, mask, required: int = MASK_VALID):

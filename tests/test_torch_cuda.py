@@ -477,3 +477,149 @@ def test_plain_attention_route_backpropagates():
     for a, b in zip(grads, want):
         assert a.abs().max().item() > 0
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the store across CUDA streams (the async shadow drainer's own stream)
+# ---------------------------------------------------------------------------
+
+_DELAY = 20_000_000            # cycles of torch.cuda._sleep, ~10 ms
+
+
+def _slow_uploads(monkeypatch):
+    """Make every host upload of a store write asynchronous, behind a
+    delay kernel: the whole write then waits on the device while the host
+    runs on, so a reader that is not ordered after the writer's stream
+    sees a partial epoch."""
+    from repro_torch.core import memory as mem
+    upload = mem._on
+
+    def slow(state, x, dtype):
+        if torch.is_tensor(x):
+            return upload(state, x, dtype)
+        torch.cuda._sleep(_DELAY // 4)
+        host = torch.as_tensor(np.asarray(x)).pin_memory()
+        return host.to(state.device, non_blocking=True).to(dtype)
+    monkeypatch.setattr(mem, "_on", slow)
+
+
+def _unit_rows(rng, n, E):
+    x = rng.normal(size=(n, E)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapped", [False, True])
+def test_cuda_apply_on_a_side_stream_is_whole_for_a_reader(rng, cuda,
+                                                           wrapped,
+                                                           monkeypatch):
+    """An epoch applied on a side stream, its scatters queued behind
+    delay kernels (:func:`_slow_uploads`), then read on the default stream
+    (the serve thread's) after the store lock: every read sees the whole
+    epoch. 40 epochs of 8 inserts; each read must find each new row as its
+    own top-1 (sim 1, its row). ``wrapped``: the same through the IVF
+    plane (its index refresh runs on the side stream)."""
+    from repro_torch.core import memory as mem
+    from repro_torch.core.memory_ivf import IVFMemory
+    _slow_uploads(monkeypatch)
+    cfg = mem.MemoryConfig(capacity=512, embed_dim=384, guide_len=4)
+    state = mem.init_memory(cfg, device=cuda)
+    if wrapped:
+        state = IVFMemory(state, clusters=8, probes=8)
+    stream = mem.CommitStream()
+    side = torch.cuda.Stream(cuda)
+    for epoch in range(40):
+        rows = _unit_rows(rng, 8, 384)
+        with stream.lock, torch.cuda.stream(side):
+            torch.cuda._sleep(_DELAY)
+            for i, r in enumerate(rows):
+                stream.buffer.stage_add(r, np.zeros(4, np.int32), False,
+                                        False, 8 * epoch + i + 1)
+            state = stream.apply(state)
+            if wrapped:
+                state.query_topk_batch(torch.from_numpy(rows).to(cuda), 1)
+        with stream.lock:
+            got = mem.query_topk_batch(
+                state, torch.from_numpy(rows).to(cuda), 1).device_get()
+        want = (8 * epoch + np.arange(8)) % cfg.capacity
+        np.testing.assert_array_equal(got.index[:, 0], want)
+        np.testing.assert_array_equal(got.added_at[:, 0],
+                                      8 * epoch + np.arange(8) + 1)
+        assert np.all(got.sim[:, 0] > 0.9999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapped", [False, True])
+def test_cuda_default_stream_apply_is_whole_for_a_side_reader(rng, cuda,
+                                                              wrapped,
+                                                              monkeypatch):
+    """The reverse of the case above: an epoch applied on the default
+    stream (the serve thread's, which the apply leaves unsynced), its
+    scatters queued behind delay kernels, then read on a side stream (the
+    async drainer's) after the store lock, which orders the side stream
+    after the default one: every read sees the whole epoch. ``wrapped``:
+    through the IVF plane
+    (its index refresh then runs on the default stream)."""
+    from repro_torch.core import memory as mem
+    from repro_torch.core.memory_ivf import IVFMemory
+    _slow_uploads(monkeypatch)
+    cfg = mem.MemoryConfig(capacity=512, embed_dim=384, guide_len=4)
+    state = mem.init_memory(cfg, device=cuda)
+    if wrapped:
+        state = IVFMemory(state, clusters=8, probes=8)
+    stream = mem.CommitStream()
+    side = torch.cuda.Stream(cuda)
+    for epoch in range(40):
+        rows = _unit_rows(rng, 8, 384)
+        q = torch.from_numpy(rows).to(cuda)
+        torch.cuda.synchronize()
+        with stream.lock:
+            torch.cuda._sleep(_DELAY)
+            for i, r in enumerate(rows):
+                stream.buffer.stage_add(r, np.zeros(4, np.int32), False,
+                                        False, 8 * epoch + i + 1)
+            state = stream.apply(state)
+            if wrapped:
+                state.query_topk_batch(q, 1)
+        with torch.cuda.stream(side), stream.lock:
+            got = mem.query_topk_batch(state, q, 1).device_get()
+        want = (8 * epoch + np.arange(8)) % cfg.capacity
+        np.testing.assert_array_equal(got.index[:, 0], want)
+        np.testing.assert_array_equal(got.added_at[:, 0],
+                                      8 * epoch + np.arange(8) + 1)
+        assert np.all(got.sim[:, 0] > 0.9999)
+
+
+@pytest.mark.cuda
+def test_cuda_grow_on_a_side_stream_keeps_blocks_for_the_reader(rng, cuda):
+    """A store grown on a side stream and read on the default stream:
+    dropping it while the read is still queued (behind a delay kernel)
+    must not let the side stream's next allocations take its blocks
+    (``record_stream`` in ``grow_memory``), so the read returns the
+    grown store's rows."""
+    from repro_torch.core import memory as mem
+    cfg = mem.MemoryConfig(capacity=256, embed_dim=384, guide_len=4)
+    state = mem.init_memory(cfg, device=cuda)
+    rows = _unit_rows(rng, 64, 384)
+    state = mem.add_batch(state, rows, np.zeros((64, 4), np.int32),
+                          np.zeros(64, bool), np.zeros(64, bool),
+                          np.arange(64, dtype=np.int32))
+    stream = mem.CommitStream()
+    side = torch.cuda.Stream(cuda)
+    q = torch.from_numpy(rows[:16]).to(cuda)
+    for _ in range(5):
+        with torch.cuda.stream(side):
+            grown, _ = stream.grow(state, 1024)
+        torch.cuda._sleep(_DELAY)
+        sims, idx = ops.memory_topk_batch_padded(grown.emb, q, grown.mask, 1)
+        del grown
+        with torch.cuda.stream(side):
+            junk = [torch.full((1024 + 8, 384), -1.0, device=cuda)
+                    for _ in range(8)]
+            junk += [torch.zeros((1024 + 8, 1), dtype=torch.int32,
+                                 device=cuda) for _ in range(8)]
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(idx[:, 0].cpu().numpy(),
+                                      np.arange(16))
+        assert torch.all(sims[:, 0] > 0.9999)
+        del junk

@@ -17,6 +17,7 @@ from repro_torch.core import embedder, memory
 from repro_torch.core.pipeline import MicrobatchRAR
 from repro_torch.core.router import train_router
 from repro_torch.experiments import build_system, run_rar_experiment
+from repro_torch.launch import serve
 from repro_torch.models import init_cache, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,7 +38,10 @@ def test_no_jax_or_reference_package_in_sys_modules():
               "repro_torch.training.train_step",
               "repro_torch.training.checkpoint", "repro_torch.core.router",
               "repro_torch.experiments.setup",
-              "repro_torch.experiments.stages"):
+              "repro_torch.experiments.stages",
+              "repro_torch.serving.metrics", "repro_torch.serving.faults",
+              "repro_torch.serving.transport", "repro_torch.core.shadow",
+              "repro_torch.launch.serve"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -53,7 +57,7 @@ def test_no_jax_or_reference_package_in_sys_modules():
     assert out.stdout.strip() == "[]"
 
 
-def test_entry_points_refuse_cpu_fallback(monkeypatch):
+def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(trar.WEAK, seed=0)
@@ -71,6 +75,11 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         run_rar_experiment(None, [])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_router([[1.0]], [1.0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        memory.open_journaled_stream(str(tmp_path / "j"),
+                                     memory.MemoryConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "4"])
     assert init_params(trar.WEAK, seed=0, device="cpu")["embed"].device.type \
         == "cpu"
 

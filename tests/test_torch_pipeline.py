@@ -270,9 +270,20 @@ def test_deferred_flush_every_batch_equals_inline():
                        _fake_tiers(weak_known={0, 1}), device="cpu")
     assert _plain(d_outs) == _plain(base_outs)
     _same_store(base.memory, d.memory)
-    with pytest.raises(NotImplementedError):
-        _serve(TMicro, dataclasses.replace(dcfg, shadow_mode="async"),
-               stream, 4, _fake_tiers(), device="cpu")
+    # async, held to the inline schedule by a barrier after every batch
+    a = TMicro(*_fake_tiers(weak_known={0, 1}), lambda p: None,
+               lambda e, k: False,
+               dataclasses.replace(dcfg, shadow_mode="async"), device="cpu")
+    a_outs = []
+    for start in range(0, len(stream), 4):
+        chunk = stream[start:start + 4]
+        a_outs += a.process_batch(
+            [prompt(s, x) for s, x in chunk], [greq(s) for s, _ in chunk],
+            keys=chunk, embs=np.stack([skill_emb(s) for s, _ in chunk]))
+        a.flush_shadow(timeout=60)
+    a.close_shadow(timeout=60)
+    assert _plain(a_outs) == _plain(base_outs)
+    _same_store(base.memory, a.memory)
 
 
 # ---------------------------------------------------------------------------
