@@ -61,10 +61,29 @@ Phases, each of which fails the run on any error:
   S's system, async and journaled, run twice on one journal: the restart
   starts from the first run's final store and the last manifest it
   journaled.
+* F (after A; F5 after A4): the serving fabrics on R1's configuration and
+  workload. F1: ``ServingFabric(replicas=1)``, synchronous, equals R1 at
+  microbatch 8 and 32. F2: 2 and 4 thread replicas, one ticket at a time,
+  equal R1; every ticket submitted at once keeps the fabric's invariants,
+  inline and async at flush-every 4 (a drainer stream a replica). F3:
+  ``ProcessServingFabric`` (spawned workers, a CUDA context each): 1 worker
+  pipelined, 2 serialized, 2 with worker 1 SIGKILLed, and a whole-fabric
+  kill rebuilt on its journal each equal R1; the workers' own launches of
+  the store-read and flash kernels ride back in their "done" messages and
+  must be above 0 (the serve plane runs no decode step: answers take one
+  token, and the guides' decode steps run in the parent's drains). Rates: closed-loop requests/s of the thread
+  fabric and the process fabric at 1/2/4 (3 fabrics each, spawn excluded)
+  beside nvidia-smi's utilization. F4: a seeded Poisson trace of R1's
+  requests on 2 streams through ``serve_trace``: two card runs give the same
+  batches and Outcomes, the CPU the same Outcomes; paced runs at 50% and 90%
+  of the 2-replica closed-loop rate print queue delay and end-to-end
+  latency. F5: ``repro_torch.launch.serve.main`` on Phase S's system with
+  two worker processes and Poisson arrivals answers every request.
 
 The launch counters are zeroed right before each main-path phase (for S,
-before S1; A1-A3 together, A4 alone) and read right after it; a kernel of
-the path that did not launch fails the run.
+before S1; A1-A3 together, A4 alone, F1-F4 together, F5 alone) and read
+right after it, a process fabric's workers' counts added; a kernel of the
+path that did not launch fails the run.
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": ...}``.
 
@@ -109,6 +128,12 @@ FIG4_STAGES, FIG4_MB = 5, 16
 WAIT_S = 120.0                   # the longest any shadow barrier may take
 A2_FLUSH, A2_DELAY = 4, 0.005    # A2: drain cadence and injected delay
 A3_SNAPSHOT, A3_CRASH = 3, {"wal": 5, "apply": 8}   # A3: epochs
+F_REPLICAS = (1, 2, 4)           # F: thread replicas, process workers
+F_RUNS = 3                       # F: timed runs a configuration
+F_ASYNC_FLUSH = 4                # F2: async drain cadence
+F4_SEED, F4_RATE, F4_SLO_MS = 19, 400.0, 10.0   # F4: the open-loop trace
+F4_LOADS = (0.5, 0.9)            # F4: paced runs, of F2's closed-loop rate
+F5_REQUESTS = 64                 # F5: the launcher's pool
 
 
 def log(*a):
@@ -1767,6 +1792,478 @@ def phase_a4(torch, ops, system):
 
 
 # ---------------------------------------------------------------------------
+# Phase F: the serving fabrics (thread replicas, process workers, the
+# continuous batcher and open-loop load)
+# ---------------------------------------------------------------------------
+
+
+def f_stream(mb):
+    """R1's request stream at microbatch ``mb``: (prompts, guide requests,
+    keys, embeddings) a batch, PASSES passes over the pool."""
+    _, prompts, greqs, embs = workload()
+    out = []
+    for pos in range(0, PASSES * POOL, mb):
+        first = pos % POOL
+        sl = slice(first, first + mb)
+        out.append((prompts[sl], greqs[sl],
+                    list(range(first, first + len(prompts[sl]))), embs[sl]))
+    return out
+
+
+def f_serve(torch, fab, batches, how):
+    """Serve ``batches`` through a fabric: ``"sync"`` (``process_batch`` on
+    this thread), ``"serial"`` (one ticket at a time) or ``"all"`` (every
+    ticket submitted, then the barrier). Returns the Outcomes and the wall
+    seconds, the last barrier and a device sync included."""
+    t0 = time.perf_counter()
+    outs, tickets = [], []
+    for p, g, k, e in batches:
+        if how == "sync":
+            outs += fab.process_batch(p, g, keys=k, embs=e)
+        elif how == "serial":
+            outs += fab.submit(p, g, keys=k, embs=e).wait(timeout=WAIT_S)
+        else:
+            tickets.append(fab.submit(p, g, keys=k, embs=e))
+    fab.flush_shadow(timeout=WAIT_S)
+    for t in tickets:
+        outs += t.wait(timeout=WAIT_S)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def f_counters(fab, tier):
+    """A tier's (calls, tokens processed) over a fabric: the learn
+    replica's engine, plus what process workers shipped."""
+    own = getattr(fab.learn, tier).engine.export_counters()
+    remote = getattr(fab, "_remote_engine", {}).get(tier, {})
+    return (own["calls"] + remote.get("calls", 0),
+            own["tokens_processed"] + remote.get("tokens_processed", 0))
+
+
+def f_same_r1(tag, fab, outs, ref):
+    """A fabric's run equals R1's card run field for field: Outcome
+    streams, FM calls and tokens, store, clock and RQ2 counters; 192
+    strong calls."""
+    if [dataclasses.astuple(o) for o in outs] != ref["outcomes"]:
+        raise AssertionError(f"{tag}: Outcome stream differs from R1's")
+    ctrl = ref["ctrl"]
+    for tier in ("weak", "strong"):
+        want = getattr(ctrl, tier).engine.export_counters()
+        if f_counters(fab, tier) != (want["calls"],
+                                     want["tokens_processed"]):
+            raise AssertionError(f"{tag} {tier}: calls/tokens "
+                                 f"{f_counters(fab, tier)} vs R1's {want}")
+    same_store(fab.memory, ctrl.memory)
+    for f in ("now", "guides_from_memory", "guides_generated"):
+        if getattr(fab, f) != getattr(ctrl, f):
+            raise AssertionError(f"{tag}: {f} {getattr(fab, f)} vs R1's "
+                                 f"{getattr(ctrl, f)}")
+    strong = sum(o.strong_calls for o in outs)
+    if strong != JAX_STRONG_CALLS:
+        raise AssertionError(f"{tag}: {strong} strong calls")
+
+
+def f_invariants(tag, fab, outs):
+    """tests/test_fabric.py's invariants of a concurrent run: one Outcome a
+    request and none pending after the barrier, every committed entry
+    once in the ring, every replica's view the learn replica's store."""
+    if len(outs) != PASSES * POOL or \
+            any(o.case == "shadow_pending" for o in outs):
+        raise AssertionError(f"{tag}: {len(outs)} Outcomes, or one still "
+                             f"pending")
+    st = fab.commit_stream
+    if not (fab.memory.ptr == st.buffer.entries_applied == st.commits):
+        raise AssertionError(f"{tag}: ptr {fab.memory.ptr}, entries "
+                             f"{st.buffer.entries_applied}, commits "
+                             f"{st.commits}")
+    if not all(r.memory is fab.learn.memory for r in fab.replicas):
+        raise AssertionError(f"{tag}: a replica's view is not the store")
+    s = fab.stats()
+    if s["items_enqueued"] != s["items_drained"]:
+        raise AssertionError(f"{tag}: {s['items_enqueued']} items enqueued,"
+                             f" {s['items_drained']} drained")
+
+
+def smi_busy(fn):
+    """Run ``fn`` while ``nvidia-smi`` samples the card's utilization every
+    100 ms; returns (fn's result, the mean utilization in percent, the
+    number of samples), or None for the share without ``nvidia-smi``."""
+    import shutil
+    if shutil.which("nvidia-smi") is None:
+        return fn(), None, 0
+    poll = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        out = fn()
+    finally:
+        poll.terminate()
+        text = poll.communicate(timeout=30)[0]
+    vals = [float(x) for x in text.split() if x.strip().isdigit()]
+    return out, (sum(vals) / len(vals) if vals else None), len(vals)
+
+
+def f_rates(runs):
+    """Median and spread of the requests/s of ``runs`` (seconds each)."""
+    rates = sorted(PASSES * POOL / s for s in runs)
+    return dict(median=rates[len(rates) // 2], min=rates[0], max=rates[-1],
+                runs=rates)
+
+
+def phase_f(torch, ops, tiers, r_results):
+    """F1-F4 (see the module docstring). Returns the launch counts (the
+    parent's and every worker's) and the measured rates."""
+    import functools
+
+    from repro_torch.configs import rar_system
+    from repro_torch.core.fm import FMTier
+    from repro_torch.experiments import stages
+    from repro_torch.serving.fabric import ServingFabric
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.loadgen import poisson_trace
+    from repro_torch.serving.procfabric import ProcessServingFabric
+    from repro_torch.serving.scheduler import serve_trace
+
+    cuda, cpu = torch.device(DEV), torch.device("cpu")
+    vocab, prompts, greqs, embs = workload()
+    results, worker_counts = {}, {}
+    ref = r_results[f"R1_mb{MICROBATCHES[0]}"]
+    batches = f_stream(MICROBATCHES[0])
+
+    def tiers_on(dev):
+        return (FMTier.create("weak", rar_system.WEAK,
+                              to_device(tiers[0], dev), vocab),
+                FMTier.create("strong", rar_system.STRONG,
+                              to_device(tiers[1], dev), vocab))
+
+    def thread_fab(n, dev=cuda, **cfg):
+        weak, strong = tiers_on(dev)
+        return ServingFabric(weak, strong, None, lambda e, k: False,
+                             rar_system.make_rar_config(**cfg), replicas=n,
+                             device=dev)
+
+    weak, strong = tiers_on(cuda)
+    factory = functools.partial(stages._proc_replica_parts,
+                                stages._tier_spec(weak),
+                                stages._tier_spec(strong), frozenset())
+
+    def proc_fab(n, **kw):
+        cfg = rar_system.make_rar_config(**kw.pop("cfg", {}))
+        return ProcessServingFabric(factory, cfg, workers=n, device=cuda,
+                                    **kw)
+
+    def ready(*fabs):
+        for fab in fabs:
+            for h in fab._handles:
+                if not h.ready.wait(WAIT_S):
+                    raise AssertionError("F3: a worker never became ready")
+
+    def close_procs(*fabs):
+        """Count the workers' launches, then close the fabrics together
+        (each close joins its workers' exits), raising the first error."""
+        import threading
+        for fab in fabs:
+            for k, v in fab.worker_launches().items():
+                worker_counts[k] = worker_counts.get(k, 0) + v
+        errors = []
+
+        def close(fab):
+            try:
+                fab.close_shadow()
+            except BaseException as e:      # raised below, on this thread
+                errors.append(e)
+        threads = [threading.Thread(target=close, args=(f,)) for f in fabs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    # F1: the 1-replica fabric, synchronous, equals R1 (microbatch 8, 32)
+    for mb in MICROBATCHES:
+        fab = thread_fab(1)
+        outs, _ = f_serve(torch, fab, f_stream(mb), "sync")
+        f_same_r1(f"F1 mb={mb}", fab, outs, r_results[f"R1_mb{mb}"])
+        fab.close_shadow()
+    log(f"F1 ServingFabric(replicas=1), process_batch at microbatch "
+        f"{MICROBATCHES}: Outcome streams, FM calls and tokens, store, "
+        f"clock and counters == R1's card run; {JAX_STRONG_CALLS} strong "
+        f"calls per {PASSES * POOL}")
+
+    # F2: thread replicas; serialized == R1, concurrent keeps invariants,
+    # and async at flush-every F_ASYNC_FLUSH (a drainer stream a replica)
+    for n in F_REPLICAS[1:]:
+        fab = thread_fab(n)
+        outs, _ = f_serve(torch, fab, batches, "serial")
+        f_same_r1(f"F2 {n} replicas serialized", fab, outs, ref)
+        fab.close_shadow()
+        for mode in ("inline", "async"):
+            before = ops.stream_launches()
+            fab = thread_fab(n, shadow_mode=mode,
+                             shadow_flush_every=1 if mode == "inline"
+                             else F_ASYNC_FLUSH)
+            outs, dt = f_serve(torch, fab, batches, "all")
+            fab.close_shadow()
+            f_invariants(f"F2 {n} replicas {mode}", fab, outs)
+            streams = {st for (k, st), v in ops.stream_launches().items()
+                       if k == "memory_topk" and v > before.get((k, st), 0)}
+            log(f"F2 {n} replicas, {mode}"
+                f"{f' flush-every {F_ASYNC_FLUSH}' if mode == 'async' else ''}"
+                f", every ticket submitted then joined: invariants hold "
+                f"(one Outcome a request, ptr == entries_applied == commits"
+                f" == {fab.memory.ptr}, one store in every view); strong "
+                f"calls {sum(o.strong_calls for o in outs)}; memory_topk on "
+                f"{len(streams)} CUDA streams; {PASSES * POOL / dt:.1f} "
+                f"req/s")
+            if mode == "async" and len(streams) < 2:
+                raise AssertionError(f"F2 {n} replicas async: the store read"
+                                     f" ran on {len(streams)} stream(s)")
+
+    # rates: closed loop, every ticket submitted then joined, inline;
+    # 3 runs a configuration, thread replicas and process workers
+    rates = {}
+    for n in F_REPLICAS:
+        def runs():
+            secs = []
+            for _ in range(F_RUNS):
+                fab = thread_fab(n)
+                outs, dt = f_serve(torch, fab, batches, "all")
+                fab.close_shadow()
+                f_invariants(f"rates thread {n}", fab, outs)
+                secs.append(dt)
+            return secs
+        secs, busy, samples = smi_busy(runs)
+        rates[f"thread-{n}"] = dict(f_rates(secs), busy=busy,
+                                    samples=samples)
+    spent = {}
+    for n in F_REPLICAS:
+        t0 = time.perf_counter()
+        fabs = [proc_fab(n) for _ in range(F_RUNS)]
+        ready(*fabs)                           # spawn time not counted
+        t1 = time.perf_counter()
+
+        def runs():
+            secs = []
+            for i, fab in enumerate(fabs):
+                outs, dt = f_serve(torch, fab, batches, "all")
+                if n == 1:
+                    # F3: one worker, pipelined submission, equals R1
+                    f_same_r1(f"F3 1 worker pipelined (run {i + 1})", fab,
+                              outs, ref)
+                else:
+                    f_invariants(f"rates process {n}", fab, outs)
+                secs.append(dt)
+            return secs
+        secs, busy, samples = smi_busy(runs)
+        t2 = time.perf_counter()
+        close_procs(*fabs)
+        spent[n] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        rates[f"process-{n}"] = dict(f_rates(secs), busy=busy,
+                                     samples=samples)
+    log(f"F3 1 worker, every ticket submitted at once (the ack gate), "
+        f"{F_RUNS} fabrics: each == R1's card run. Process fabrics, seconds"
+        f" to spawn until every worker is ready / to serve the runs / to "
+        f"close: " + "; ".join(f"{n} worker(s) {a:.1f} / {b:.1f} / {c:.1f}"
+                               for n, (a, b, c) in spent.items()))
+    for k, v in rates.items():
+        busy = ("not measured" if v["busy"] is None else
+                f"{v['busy']:.1f}% ({v['samples']} samples)")
+        log(f"F rates {k}: {v['median']:.1f} req/s median of {F_RUNS} "
+            f"({v['min']:.1f}-{v['max']:.1f}; closed loop, microbatch "
+            f"{MICROBATCHES[0]}, R1's workload, spawn excluded); card busy "
+            f"(nvidia-smi utilization.gpu, 100 ms samples) {busy}")
+    results["rates"] = rates
+
+    # F3: two workers serialized; a SIGKILL of worker 1; a whole-fabric
+    # kill and a rebuild on the same journal. Started after the rate
+    # fabrics are closed: an idle worker starved of the host's cores while
+    # a dozen others start can miss its lease and be replaced
+    f3 = (proc_fab(2), proc_fab(2, fault_plan=FaultPlan(
+        [FaultPlan.replica_kill(1, at=2)])))
+    ready(*f3)
+    fab = f3[0]
+    outs, _ = f_serve(torch, fab, batches, "serial")
+    f_same_r1("F3 2 workers serialized", fab, outs, ref)
+    fab = f3[1]
+    outs, _ = f_serve(torch, fab, batches, "serial")
+    f_same_r1("F3 2 workers, worker 1 SIGKILLed", fab, outs, ref)
+    if not (fab.deaths == fab.restarts == fab.redispatches == 1):
+        raise AssertionError(f"F3 kill: deaths {fab.deaths}, restarts "
+                             f"{fab.restarts}, redispatches "
+                             f"{fab.redispatches}")
+    close_procs(*f3)
+    path = a_dir("f3_journal")
+    jcfg = dict(journal_path=str(path), snapshot_every=A3_SNAPSHOT)
+    half = len(batches) // 2
+    fab = proc_fab(1, cfg=jcfg)
+    outs, _ = f_serve(torch, fab, batches[:half], "serial")
+    for k, v in fab.worker_launches().items():
+        worker_counts[k] = worker_counts.get(k, 0) + v
+    fab.kill()
+    fab = proc_fab(1, cfg=jcfg)
+    more, _ = f_serve(torch, fab, batches[half:], "serial")
+    f_same_r1("F3 whole-fabric kill, rebuilt on its journal", fab,
+              outs + more, ref)
+    close_procs(fab)
+    log(f"F3 ProcessServingFabric on the card (spawn): 2 workers "
+        f"serialized == R1; worker 1 SIGKILLed at its 2nd batch: deaths == "
+        f"restarts == redispatches == 1, == R1; killed after {half} batches"
+        f" and rebuilt on its journal: served on to R1's Outcomes, store "
+        f"and counters; the workers' launches {worker_counts} (the serve "
+        f"plane decodes nothing: answers take one token; guides, the "
+        f"decode steps, are generated in the parent's drains)")
+    if cuda.type == "cuda":
+        for k in ("memory_topk", "flash_attention"):
+            if worker_counts.get(k, 0) == 0:
+                raise AssertionError(f"F3: no worker launched {k}")
+
+    # F4: open loop through the continuous batcher
+    def open_loop(fab, rate, pace=False, replicas=1):
+        trace = poisson_trace([PASSES * POOL // 2] * 2, rate, seed=F4_SEED,
+                              streams=2)
+        order = [[p for p in range(PASSES * POOL) if p % 2 == j]
+                 for j in range(2)]
+        cursors = [0, 0]
+
+        def make_request(ev):
+            pos = order[ev.stream][cursors[ev.stream]]
+            cursors[ev.stream] += 1
+            i = pos % POOL
+            return prompts[i], greqs[i], i, embs[i]
+        t0 = time.perf_counter()
+        outs, bat = serve_trace(fab, trace, make_request,
+                                microbatch=MICROBATCHES[0], slo_ms=F4_SLO_MS,
+                                replica_fn=lambda s: s % replicas,
+                                pace=pace, timeout=WAIT_S)
+        fab.flush_shadow(timeout=WAIT_S)
+        dt = time.perf_counter() - t0
+        fab.close_shadow()
+        return outs, bat, dt
+
+    runs = []
+    for dev in (cuda, cuda, cpu):
+        outs, bat, _ = open_loop(thread_fab(1, dev), F4_RATE)
+        runs.append(([dataclasses.astuple(o) for o in outs],
+                     [[r.index for r in d.requests] for d in bat.dispatches],
+                     dict(bat.closes)))
+    if runs[0] != runs[1]:
+        raise AssertionError("F4: two card runs of one trace differ")
+    if runs[0][0] != runs[2][0]:
+        raise AssertionError("F4: card and CPU Outcomes differ")
+    log(f"F4 open loop, poisson trace of {PASSES * POOL} requests on 2 "
+        f"streams at {F4_RATE:g} req/s (seed {F4_SEED}, slo {F4_SLO_MS} ms,"
+        f" virtual time) over a 1-replica fabric: two card runs give the "
+        f"same {len(runs[0][1])} batches (closes {runs[0][2]}) and Outcomes,"
+        f" the CPU the same Outcomes; strong calls "
+        f"{sum(o[2] for o in runs[0][0])}")
+    closed = rates[f"thread-{F_REPLICAS[1]}"]["median"]
+    for load in F4_LOADS:
+        fab = thread_fab(F_REPLICAS[1])
+        outs, bat, dt = open_loop(fab, load * closed, pace=True,
+                                  replicas=F_REPLICAS[1])
+        reg = fab.metrics_registry.snapshot()
+        qd, e2e = reg["sched/queue_delay_ms"], reg["sched/e2e_ms"]
+        if qd["count"] != PASSES * POOL or len(outs) != PASSES * POOL:
+            raise AssertionError(f"F4 paced: {qd['count']} delays, "
+                                 f"{len(outs)} Outcomes")
+        results[f"F4_{load}"] = dict(rate=load * closed, qd_p50=qd["p50"],
+                                     qd_p99=qd["p99"], e2e_p99=e2e["p99"],
+                                     wall=dt)
+        log(f"F4 paced, {F_REPLICAS[1]} replicas at {load:.0%} of the "
+            f"closed-loop {closed:.1f} req/s ({load * closed:.1f} req/s): "
+            f"queue delay p50 {qd['p50']:.3f} ms, p99 {qd['p99']:.3f} ms; "
+            f"end to end p99 {e2e['p99']:.3f} ms; {bat.stats()['batches']}"
+            f" batches (closes {bat.closes}); wall {dt:.3f} s")
+
+    counts = ops.launch_counts()
+    log(f"F launches on the card: the parent's {counts}, the workers' "
+        f"{worker_counts}; Phase F took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for k, v in worker_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    for k in ("memory_topk", "flash_attention", "decode_attention"):
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"Phase F never launched {k}")
+    return counts, results
+
+
+def phase_f5(torch, ops, system):
+    """F5: the launcher on Phase S's system with two worker processes and
+    open-loop poisson arrivals: every request answered once a stage, the
+    metrics JSON with the scheduler's and the replicas' entries."""
+    import json as _json
+
+    from repro_torch.launch import serve
+    from repro_torch.serving.procfabric import ProcessServingFabric
+
+    mjson = ROOT / "build" / "phase_f" / "f5.json"
+    mjson.parent.mkdir(parents=True, exist_ok=True)
+    n, n_stages = F5_REQUESTS, 2
+    args = ["--device", DEV, "--requests", str(n), "--stages", str(n_stages),
+            "--microbatch", str(MICROBATCHES[0]), "--replicas", "2",
+            "--transport", "process", "--arrival-pattern", "poisson",
+            "--arrival-rate", str(F4_RATE), "--metrics-json", str(mjson),
+            "--log-every", "0"]
+    tickets = []
+    base = ProcessServingFabric.submit
+
+    def submit(self, *a, **kw):
+        t = base(self, *a, **kw)
+        tickets.append(t)
+        return t
+    saved = serve.build_system
+    serve.build_system = lambda device: system
+    ProcessServingFabric.submit = submit
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        results, rar = serve.main(args)
+        dt = time.perf_counter() - t0
+    finally:
+        serve.build_system = saved
+        ProcessServingFabric.submit = base
+    counts = ops.launch_counts()
+    outs = [o for t in tickets for o in t.wait(timeout=WAIT_S)]
+    met = _json.loads(mjson.read_text())
+    reg = met["registry"]
+    if [r.n for r in results] != [n] * n_stages or \
+            len(outs) != n * n_stages or \
+            sum(r.strong_calls for r in results) != \
+            sum(o.strong_calls for o in outs):
+        raise AssertionError(f"F5: stages {[r.n for r in results]}, "
+                             f"{len(outs)} Outcomes")
+    if reg.get("sched/admitted") != n * n_stages or \
+            reg["sched/queue_delay_ms"]["count"] != n * n_stages or \
+            len(met["workers"]) != 2 or \
+            "replica0/shadow/items_drained" not in reg:
+        raise AssertionError(f"F5: metrics JSON lacks the scheduler's or "
+                             f"the replicas' entries: {sorted(reg)[:12]}")
+    if rar.commit_stream.buffer.entries_applied != rar.memory.ptr:
+        raise AssertionError("F5: entries_applied != ptr")
+    workers = rar.worker_launches()
+    log(f"F5 launcher --replicas 2 --transport process --arrival-pattern "
+        f"poisson on Phase S's system ({n} questions, {n_stages} stages, "
+        f"microbatch {MICROBATCHES[0]}): every request answered once a "
+        f"stage, strong calls {[r.strong_calls for r in results]}, aligned "
+        f"{[r.aligned for r in results]}; metrics JSON: sched/admitted "
+        f"{reg['sched/admitted']}, queue delay p50 "
+        f"{reg['sched/queue_delay_ms']['p50']:.3f} ms, p99 "
+        f"{reg['sched/queue_delay_ms']['p99']:.3f} ms, workers "
+        f"{[w['alive'] for w in met['workers']]}; {dt:.1f} s with spawn; "
+        f"launches: the parent's {counts}, the workers' {workers}")
+    for k, v in workers.items():
+        counts[k] = counts.get(k, 0) + v
+    for k in ("memory_topk", "flash_attention", "decode_attention"):
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"F5 never launched {k}")
+    return counts, dict(strong=rows(results))
+
+
+# ---------------------------------------------------------------------------
 # Trace: where the card's time goes (run on its own, not by main())
 # ---------------------------------------------------------------------------
 
@@ -2007,9 +2504,11 @@ def main() -> int:
     r_counts, r_results, tiers = phase_r(torch, ops)
     i_counts, _ = phase_i(torch, ops, tiers, r_results)
     a_counts, _ = phase_a(torch, ops, tiers, r_results)
+    f_counts, _ = phase_f(torch, ops, tiers, r_results)
     l_counts, _ = phase_l(torch, ops)
     s_counts, s_results = phase_s(torch, ops)
     a4_counts, _ = phase_a4(torch, ops, s_results["system"])
+    f5_counts, _ = phase_f5(torch, ops, s_results["system"])
 
     kernels = []
     for name in SOURCES:
@@ -2019,8 +2518,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": sum(c.get(name, 0)
-                            for c in (r_counts, i_counts, a_counts, l_counts,
-                                      s_counts, a4_counts)),
+                            for c in (r_counts, i_counts, a_counts, f_counts,
+                                      l_counts, s_counts, a4_counts,
+                                      f5_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -730,6 +730,9 @@ class CommitStream:
         # per-epoch ops tap: called under the lock after each apply with
         # (epoch, records, soft_clears, touches, entries)
         self.ops_listener = None
+        # metrics registry (set by the owning fabric): applied epochs and
+        # entries and the current epoch, host numbers bumped under the lock
+        self.metrics = None
 
     def subscribe(self, view) -> None:
         if view not in self._views:
@@ -768,6 +771,12 @@ class CommitStream:
                 v.commit_epoch_seen = self.buffer.epoch
             if self.ops_listener is not None:
                 self.ops_listener(epoch, records, soft_clears, touches, n)
+            if self.metrics is not None:
+                with self.metrics.lock:
+                    self.metrics.counter("commit/epochs_applied").inc()
+                    self.metrics.counter("commit/entries_applied").inc(n)
+                    self.metrics.gauge("commit/epoch").set(
+                        self.buffer.epoch)
             if self.journal is not None:
                 self.journal.maybe_snapshot(state, self.buffer, manifest)
         return state

@@ -70,9 +70,16 @@ class MicrobatchRAR(RAR):
         self.metrics_registry = self._metrics_registry()
         self.shadow = self._make_shadow_queue()
 
+    def _shadow_runner(self):
+        """The queue's drain callable. The fabrics override it: thread
+        replicas funnel into the learn replica, process workers collect
+        their items for the parent's drain."""
+        return self._drain_shadow
+
     def _metrics_registry(self) -> MetricsRegistry:
         """The registry the shadow queue mirrors its stats into (a private
-        one for a standalone controller)."""
+        one for a standalone controller; the fabric's replicas share the
+        fabric's)."""
         return MetricsRegistry()
 
     def _metrics_prefix(self) -> str:
@@ -87,7 +94,7 @@ class MicrobatchRAR(RAR):
     def _make_shadow_queue(self) -> shq.ShadowQueue:
         """The controller's shadow queue, staged into (and locked against)
         the commit stream, on the store's device."""
-        return shq.ShadowQueue(runner=self._drain_shadow,
+        return shq.ShadowQueue(runner=self._shadow_runner(),
                                mode=self.cfg.shadow_mode,
                                flush_every=self.cfg.shadow_flush_every,
                                buffer=self.commit_stream.buffer,

@@ -7,25 +7,29 @@ A *stage* = one pass over the pool (RAR's memory persists across stages);
 an *experiment* = ``n_stages`` stages over one shuffle; results are
 reported mean±std over shuffles (:func:`aggregate_shuffles`).
 
-Ported: the sequential stream (``RAR.process``, ``microbatch=1``) and the
-batched data plane (``MicrobatchRAR.process_batch``), the
-``retrieval_k``/``max_guides`` overrides, the RQ2 warm-up
-(``prepopulate_from``), every shadow mode (inline, deferred, async,
-adaptive), fault plans, ``progress_every`` and ``metrics_every``. Refused,
-naming ROADMAP queue 1 item 5 (the serving fabrics): serve replicas,
-the process transport and open-loop arrivals.
+Every option of the JAX driver runs: the sequential stream
+(``RAR.process``, ``microbatch=1``), the batched data plane
+(``MicrobatchRAR.process_batch``), serve replicas (the thread fabric, or
+with ``transport="process"`` one worker process each), open-loop arrivals
+through the continuous batcher, the ``retrieval_k``/``max_guides``
+overrides, the RQ2 warm-up (``prepopulate_from``), every shadow mode,
+fault plans, ``progress_every`` and ``metrics_every``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.core.fm import FMTier, ResilientTier
 from repro_torch.core.pipeline import MicrobatchRAR
 from repro_torch.core.rar import RAR, RARConfig, splice_guide
 from repro_torch.device import resolve_device
 from repro_torch.experiments.setup import TrainedSystem
+from repro_torch.tree import tree_map
 
 Sample = tuple[int, int, int]   # (domain, skill, operand)
 
@@ -56,14 +60,48 @@ def _batched_answers(tier, prompts: list[np.ndarray]) -> np.ndarray:
     return tier.answer_batch(np.stack(prompts))
 
 
-def _refuse_unported(replicas, transport, arrival_pattern) -> None:
-    if replicas > 1 or transport != "thread":
-        raise NotImplementedError("replicas/transport: the serving fabrics "
-                                  "are not ported (ROADMAP queue 1 item 5)")
-    if arrival_pattern not in (None, "closed"):
-        raise NotImplementedError("open-loop arrivals: the scheduler and "
-                                  "load generator are not ported (ROADMAP "
-                                  "queue 1 item 5)")
+# ---------------------------------------------------------------------------
+# Process-transport replica factory (module level: it pickles into spawned
+# worker processes, see repro_torch.serving.procfabric)
+# ---------------------------------------------------------------------------
+
+
+def _tier_spec(tier):
+    """A picklable recipe for an :class:`FMTier`: its parameters as host
+    arrays and the name of the device to rebuild it on, so the spec
+    crosses the process boundary without a tensor."""
+    if isinstance(tier, ResilientTier):
+        tier = tier.inner
+    return (tier.name, tier.cfg,
+            tree_map(lambda t: t.detach().cpu().numpy(), tier.engine.params),
+            tier.vocab, str(tier.engine.device))
+
+
+def _tier_from_spec(spec) -> FMTier:
+    name, cfg, params, vocab, device = spec
+    return FMTier.create(name, cfg, tree_map(
+        lambda a: torch.from_numpy(a).to(device), params), vocab)
+
+
+def _proc_no_embed(prompt):
+    # the fabrics ship embeddings with every dispatch (``submit(...,
+    # embs=...)``): neither the learn plane nor a worker calls embed_fn
+    return None
+
+
+def _proc_oracle_route(weak_ok, emb, key):
+    return key in weak_ok
+
+
+def _proc_replica_parts(weak_spec, strong_spec, weak_ok):
+    """Replica factory of :class:`ProcessServingFabric`: both FM tiers
+    rebuilt from host parameters on the spec's device, the same in the
+    parent and in every worker."""
+    return {"weak": _tier_from_spec(weak_spec),
+            "strong": _tier_from_spec(strong_spec),
+            "embed_fn": _proc_no_embed,
+            "route_weak_fn": functools.partial(_proc_oracle_route,
+                                               weak_ok)}
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +125,9 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
                        shadow_dedup_sim: float | None = None,
                        fault_plan=None,
                        arrival_pattern: str | None = None,
+                       arrival_rate: float = 64.0,
+                       slo_ms: float | None = None,
+                       priorities=None,
                        verbose: bool = False,
                        progress_every: int = 0,
                        metrics_every: int = 0,
@@ -105,6 +146,15 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
     ``MicrobatchRAR.process_batch`` with microbatch-commit memory
     semantics.
 
+    ``replicas`` > 1 serves through a fabric: ``transport="thread"``
+    (:class:`~repro_torch.serving.fabric.ServingFabric`, replica worker
+    threads) or ``"process"`` (:class:`~repro_torch.serving.procfabric.
+    ProcessServingFabric`, one worker process a replica, oracle router
+    only). ``arrival_pattern`` ``"poisson"``/``"bursty"`` turns each stage
+    into a seeded open-loop arrival trace (``arrival_rate`` requests/s,
+    one stream a replica, ``priorities`` cycled over the streams) admitted
+    through the continuous batcher (``slo_ms`` queueing budget).
+
     ``retrieval_k``/``max_guides``/``shadow_mode``/``shadow_flush_every``/
     ``shadow_dedup_sim`` override ``rar_cfg`` as in the JAX package. A
     flush barrier runs at every stage end, so per-stage results are exact
@@ -120,7 +170,6 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
     counter (no device sync). ``metrics_every``: print a one-line summary
     of the controller's host-side ``metrics()`` every N served requests.
     """
-    _refuse_unported(replicas, transport, arrival_pattern)
     dev = resolve_device(device)
     if system.weak.engine.device.type != dev.type:
         raise ValueError(f"the system lives on {system.weak.engine.device}, "
@@ -168,9 +217,51 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
     else:
         route_fn = lambda emb, key: system.router.route_weak(emb)  # noqa: E731
 
-    controller_cls = MicrobatchRAR if microbatch > 1 else RAR
-    rar = controller_cls(system.weak, strong, embed_fn, route_fn, rar_cfg,
-                         fault_plan=fault_plan, device=dev)
+    if transport not in ("thread", "process"):
+        raise ValueError(f"unknown transport {transport!r} "
+                         "(expected 'thread' or 'process')")
+    open_loop = arrival_pattern not in (None, "closed")
+    if open_loop:
+        if arrival_pattern not in ("poisson", "bursty"):
+            raise ValueError(f"unknown arrival_pattern "
+                             f"{arrival_pattern!r} (expected 'closed', "
+                             f"'poisson' or 'bursty')")
+        if replicas <= 1:
+            raise ValueError("open-loop arrivals admit through the "
+                             "serving fabric; use replicas > 1")
+        if arrival_rate <= 0:
+            raise ValueError(f"arrival_rate={arrival_rate} must be "
+                             f"positive")
+    if replicas > 1:
+        if prepopulate_from is not None:
+            raise ValueError("replicas > 1 is not combinable with "
+                             "prepopulate_from (the RQ2 warm-up is a "
+                             "sequential protocol); warm up at replicas=1")
+        if transport == "process":
+            if router_kind != "oracle":
+                raise ValueError("transport='process' requires "
+                                 "router_kind='oracle': the learned "
+                                 "router is not shipped to worker "
+                                 "processes")
+            from repro_torch.serving.procfabric import ProcessServingFabric
+            factory = functools.partial(
+                _proc_replica_parts, _tier_spec(system.weak),
+                _tier_spec(strong), frozenset(weak_ok))
+            rar = ProcessServingFabric(factory, rar_cfg, workers=replicas,
+                                       fault_plan=fault_plan, device=dev)
+        else:
+            from repro_torch.serving.fabric import ServingFabric
+            rar = ServingFabric(system.weak, strong, embed_fn, route_fn,
+                                rar_cfg, replicas=replicas,
+                                fault_plan=fault_plan, device=dev)
+    else:
+        if transport == "process":
+            raise ValueError("transport='process' requires replicas > 1 "
+                             "(the single-controller data plane serves "
+                             "in-process)")
+        controller_cls = MicrobatchRAR if microbatch > 1 else RAR
+        rar = controller_cls(system.weak, strong, embed_fn, route_fn,
+                             rar_cfg, fault_plan=fault_plan, device=dev)
 
     if prepopulate_from is not None:
         pre_prompts, pre_greqs = _prompts(system, prepopulate_from)
@@ -215,6 +306,13 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
         commit = met.get("commit", {})
         line = (f"      [metrics] epoch {commit.get('epoch', 0)}, "
                 f"entries {commit.get('entries_applied', 0)}")
+        reps = met.get("replicas")
+        if reps:
+            pending = sum(r["shadow_pending"] for r in reps)
+            stale = max(r["shadow_staleness_batches"] for r in reps)
+            drains = sum(r["drains"] for r in reps)
+            line += (f", shadow pending {pending} "
+                     f"(staleness {stale} batches), drains {drains}")
         pol = met.get("drain_policy")
         if pol:
             line += (f", policy drains {pol.get('cost_drains', 0)}cost"
@@ -239,7 +337,67 @@ def run_rar_experiment(system: TrainedSystem, pool: list[Sample], *,
             elif ok and out.guide_source == "fresh":
                 gfresh += 1
 
-        if microbatch > 1:
+        if open_loop:
+            # this stage's shuffled pool as a seeded arrival trace, one
+            # stream a replica (stage order dealt round-robin), admitted
+            # request by request; formation runs in virtual time, so
+            # routing is a function of (order, trace seed) alone
+            from repro_torch.serving import loadgen
+            from repro_torch.serving.scheduler import serve_trace
+            streams = replicas
+            seqs = [[int(order[p]) for p in range(len(order))
+                     if p % streams == j] for j in range(streams)]
+            gen = (loadgen.poisson_trace if arrival_pattern == "poisson"
+                   else loadgen.bursty_trace)
+            trace = gen([len(q) for q in seqs], arrival_rate,
+                        seed=seed * 10007 + stage, streams=streams,
+                        priorities=priorities)
+            cursors = [0] * streams
+            admitted_keys: list[int] = []
+
+            def make_request(ev):
+                i = seqs[ev.stream][cursors[ev.stream]]
+                cursors[ev.stream] += 1
+                admitted_keys.append(i)
+                return prompts[i], greqs[i], i, embs[i]
+
+            outcomes, batcher = serve_trace(
+                rar, trace, make_request, microbatch=microbatch,
+                slo_ms=slo_ms, replica_fn=lambda s: s % replicas,
+                registry=rar.metrics_registry)
+            rar.flush_shadow()
+            for i, out in zip(admitted_keys, outcomes):
+                tally(i, out)
+                progress(1)
+                metrics_line(1)
+            if verbose:
+                bs = batcher.stats()
+                qd = rar.metrics_registry.snapshot().get(
+                    "sched/queue_delay_ms", {})
+                print(f"      [open-loop] {arrival_pattern} "
+                      f"@{arrival_rate:g} req/s, batches {bs['batches']} "
+                      f"(closes {bs['closes']}), queue-delay "
+                      f"p50 {qd.get('p50', 0):.1f} ms / "
+                      f"p99 {qd.get('p99', 0):.1f} ms", flush=True)
+        elif replicas > 1:
+            # every microbatch to the fabric's replicas (round-robin,
+            # served concurrently), then one stage-end barrier
+            tickets: list[tuple[list[int], object]] = []
+            for start in range(0, len(order), microbatch):
+                chunk = [int(i) for i in order[start:start + microbatch]]
+                tickets.append((chunk, rar.submit(
+                    [prompts[i] for i in chunk],
+                    [greqs[i] for i in chunk],
+                    keys=chunk, embs=embs[chunk])))
+            rar.flush_shadow()
+            # progress as tickets resolve (after the barrier): submits
+            # return at once
+            for chunk, t in tickets:
+                for i, out in zip(chunk, t.wait()):
+                    tally(i, out)
+                progress(len(chunk))
+                metrics_line(len(chunk))
+        elif microbatch > 1:
             stage_outs: list[tuple[int, object]] = []
             for start in range(0, len(order), microbatch):
                 chunk = [int(i) for i in order[start:start + microbatch]]

@@ -1,27 +1,27 @@
 """Serving launcher of the port: run the RAR layered system over a request
-stream, the counterpart of ``src/repro/launch/serve.py`` on its
-single-controller path.
+stream, the counterpart of ``src/repro/launch/serve.py``.
 
 It trains (or loads from the port's cache) the synthetic-suite system on
 ``--device`` (the card by default), draws a weak-FM-failing pool and
 serves it for ``--stages`` passes through :class:`~repro_torch.core.rar.RAR`
-(``--microbatch 1``) or :class:`~repro_torch.core.pipeline.MicrobatchRAR`,
-with the shadow plane in any mode (``--shadow-mode async`` drains on a
-thread and CUDA stream of its own), the tier-resilience stack (retries,
-timeouts, the circuit breaker and its degraded routing) and the journaled,
-crash-consistent guide store (``--journal-path``: a restart with the same
-path recovers the store and the engine state). With the defaults the serve
-path is the plain one.
-
-Not ported yet (each raises :class:`NotImplementedError`, ROADMAP queue 1
-item 5, the serving fabrics): ``--replicas`` > 1, ``--transport process``
-and open-loop ``--arrival-pattern`` (so the open-loop knobs, the arrival
-rate, SLO and priorities, are not flags here).
+(``--microbatch 1``), :class:`~repro_torch.core.pipeline.MicrobatchRAR`, or
+a serving fabric of ``--replicas`` serve replicas (``--transport thread``:
+worker threads; ``process``: one worker process each, with its own CUDA
+context on the card), closed-loop or with open-loop ``--arrival-pattern``
+traffic through the continuous batcher; with the shadow plane in any mode
+(``--shadow-mode async`` drains on a thread and CUDA stream of its own),
+the tier-resilience stack (retries, timeouts, the circuit breaker and its
+degraded routing) and the journaled, crash-consistent guide store
+(``--journal-path``: a restart with the same path recovers the store and
+the engine state). With the defaults the serve path is the plain one.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
         --requests 200 --stages 3 --microbatch 16 --shadow-mode async
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
+        --microbatch 8 --replicas 2 --transport process \\
+        --arrival-pattern poisson --arrival-rate 200
 """
 from __future__ import annotations
 
@@ -32,8 +32,6 @@ import time
 from repro_torch.configs.rar_system import make_rar_config
 from repro_torch.experiments.setup import build_system, failing_pool
 from repro_torch.experiments.stages import run_rar_experiment
-
-FABRIC = "(ROADMAP queue 1 item 5: the serving fabrics are not ported)"
 
 
 def main(argv: list[str] | None = None):
@@ -52,16 +50,40 @@ def main(argv: list[str] | None = None):
                     help="requests per controller step (1 = the paper's "
                          "sequential stream; >1 = batched data plane)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="serve replicas; only 1 is ported")
+                    help="serve replicas behind one commit stream, a "
+                         "single learn replica draining all shadow work "
+                         "(1 = the single-controller data plane)")
     ap.add_argument("--transport", default="thread",
                     choices=["thread", "process"],
-                    help="how replicas are hosted; only 'thread' (the "
-                         "in-process controller) is ported")
+                    help="how serve replicas are hosted (--replicas > 1): "
+                         "'thread' = worker threads in this process; "
+                         "'process' = one worker process a replica, each "
+                         "with its own CUDA context on the card; a dead "
+                         "worker is detected, respawned and its "
+                         "microbatches redispatched (requires --router "
+                         "oracle)")
     ap.add_argument("--router", default="oracle",
                     choices=["oracle", "learned"])
     ap.add_argument("--arrival-pattern", default="closed",
                     choices=["closed", "poisson", "bursty"],
-                    help="traffic shape; only 'closed' is ported")
+                    help="traffic shape: 'closed' offers pre-partitioned "
+                         "microbatches back to back; 'poisson'/'bursty' "
+                         "turn each stage into a seeded open-loop arrival "
+                         "trace (one stream a replica) admitted through "
+                         "the continuous batcher, which reports "
+                         "queueing-delay and end-to-end p50/p99 in the "
+                         "metrics registry (--replicas > 1)")
+    ap.add_argument("--arrival-rate", type=float, default=64.0,
+                    help="offered load in requests/s for open-loop "
+                         "arrivals (virtual time: it shapes batch "
+                         "formation and queueing delay, not pacing)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="per-request queueing budget in ms for open-loop "
+                         "admission (priority p tightens it to "
+                         "slo/(1+p)); default: batches close on size")
+    ap.add_argument("--priorities", default=None,
+                    help="comma-separated per-stream priorities for "
+                         "open-loop admission, cycled over the streams")
     ap.add_argument("--sim-threshold", type=float, default=0.2)
     ap.add_argument("--retrieval-k", type=int, default=1,
                     help="memory entries retrieved per query (one store "
@@ -109,6 +131,10 @@ def main(argv: list[str] | None = None):
                          "of observed tier error rates")
     ap.add_argument("--breaker-ewma-alpha", type=float, default=0.2,
                     help="the error-rate EWMA's smoothing factor in (0, 1]")
+    ap.add_argument("--max-redispatch", type=int, default=2,
+                    help="times a crashed replica's microbatch is "
+                         "redispatched to a surviving replica before its "
+                         "ticket surfaces the error (fabric mode)")
     ap.add_argument("--journal-path", default=None,
                     help="directory of the guide store's write-ahead log "
                          "and snapshots; a restart with the same path "
@@ -127,19 +153,36 @@ def main(argv: list[str] | None = None):
                          "text format to this file")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
-    if args.replicas < 1:
-        ap.error("--replicas must be >= 1")
-    if args.replicas > 1:
-        raise NotImplementedError(f"--replicas {args.replicas} {FABRIC}")
-    if args.transport != "thread":
-        raise NotImplementedError(f"--transport {args.transport} {FABRIC}")
-    if args.arrival_pattern != "closed":
-        raise NotImplementedError(f"--arrival-pattern "
-                                  f"{args.arrival_pattern} {FABRIC}")
     if args.shadow_mode != "inline" and args.microbatch <= 1:
         ap.error("--shadow-mode deferred/async/adaptive requires "
                  "--microbatch > 1 (the sequential reference interleaves "
                  "shadow inference per request)")
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    if args.transport == "process":
+        if args.replicas <= 1:
+            ap.error("--transport process requires --replicas > 1")
+        if args.router != "oracle":
+            ap.error("--transport process requires --router oracle (the "
+                     "learned router is not shipped to worker processes)")
+    priorities = None
+    if args.arrival_pattern != "closed":
+        if args.replicas <= 1:
+            ap.error("--arrival-pattern poisson/bursty admits through "
+                     "the serving fabric; use --replicas > 1")
+        if args.arrival_rate <= 0:
+            ap.error("--arrival-rate must be positive")
+        if args.slo_ms is not None and args.slo_ms <= 0:
+            ap.error("--slo-ms must be positive")
+        if args.priorities:
+            try:
+                priorities = [int(p) for p in args.priorities.split(",")]
+            except ValueError:
+                ap.error(f"--priorities must be comma-separated ints, "
+                         f"got {args.priorities!r}")
+    elif args.priorities or args.slo_ms is not None:
+        ap.error("--priorities/--slo-ms only apply to open-loop "
+                 "--arrival-pattern poisson/bursty")
 
     system = build_system(device=args.device)
     pool = failing_pool(system, args.domain, n=args.requests)
@@ -162,12 +205,17 @@ def main(argv: list[str] | None = None):
                           breaker_cooldown=args.breaker_cooldown,
                           breaker_adaptive=args.breaker_adaptive,
                           breaker_ewma_alpha=args.breaker_ewma_alpha,
+                          max_redispatch=args.max_redispatch,
                           journal_path=args.journal_path,
                           snapshot_every=args.snapshot_every)
     t0 = time.perf_counter()
     results, rar = run_rar_experiment(
         system, pool, n_stages=args.stages, rar_cfg=cfg,
-        router_kind=args.router, microbatch=args.microbatch, verbose=True,
+        router_kind=args.router, microbatch=args.microbatch,
+        replicas=args.replicas, transport=args.transport,
+        arrival_pattern=args.arrival_pattern,
+        arrival_rate=args.arrival_rate, slo_ms=args.slo_ms,
+        priorities=priorities, verbose=True,
         progress_every=args.log_every, metrics_every=args.metrics_every,
         device=args.device)
     rar.close_shadow()

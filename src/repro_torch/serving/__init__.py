@@ -1,16 +1,24 @@
 """Serving plane of the port: the engine, and (loaded on first use) the
-fault-injection plan, the metrics registry and the frame codec."""
+serving fabrics, the framed transport, the fault-injection plan, the
+metrics registry, the admission scheduler and the load generator. The
+lazy loads keep the fabrics, which build on ``core.pipeline``, out of
+this package's import (``core`` itself serves through the engine)."""
 from repro_torch.serving.engine import ServingEngine, greedy_generate
 
-__all__ = ["ServingEngine", "greedy_generate", "FrameCorruption",
-           "FaultPlan", "FaultSpec", "InjectedFault", "ReplicaCrash",
-           "random_plan", "MetricsRegistry", "Counter", "Gauge",
-           "Histogram"]
-
-_MODULES = {"transport": ("FrameCorruption",),
+_MODULES = {"fabric": ("ServingFabric", "Ticket", "QueueLatencyAutoscaler"),
+            "procfabric": ("ProcessServingFabric", "WorkerDied",
+                           "EpochLagDrainPolicy"),
+            "transport": ("FramedChannel", "ChannelClosed",
+                          "FrameCorruption"),
             "faults": ("FaultPlan", "FaultSpec", "InjectedFault",
                        "ReplicaCrash", "random_plan"),
-            "metrics": ("MetricsRegistry", "Counter", "Gauge", "Histogram")}
+            "metrics": ("MetricsRegistry", "Counter", "Gauge", "Histogram"),
+            "scheduler": ("ContinuousBatcher", "Request", "serve_trace"),
+            "loadgen": ("ArrivalEvent", "poisson_trace", "bursty_trace",
+                        "trace_replay")}
+
+__all__ = ["ServingEngine", "greedy_generate"] + \
+    [n for names in _MODULES.values() for n in names]
 
 
 def __getattr__(name):

@@ -623,3 +623,158 @@ def test_cuda_grow_on_a_side_stream_keeps_blocks_for_the_reader(rng, cuda):
                                       np.arange(16))
         assert torch.all(sims[:, 0] > 0.9999)
         del junk
+
+
+# ---------------------------------------------------------------------------
+# the serving fabrics on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_two_drainer_streams_write_one_store_in_order(rng, cuda,
+                                                           monkeypatch):
+    """``ServingFabric._drain`` run in turn on the default stream and on
+    two drainer streams (the async drainers of two replicas), every epoch
+    refilling the whole ring of 8. Each upload of a write reaches the card
+    on an upload stream of its own, synced at once, and is taken into the
+    writer's stream by a kernel behind a delay kernel, ~10 ms on the
+    default stream and ~1 ms on a side one: a default-stream epoch is left
+    with its writes queued (unread), and the side-stream epoch after it
+    must land after it (``memory.StoreLock`` orders the side stream after
+    the default one), so a read sees the side epoch's rows and stamps. A
+    copy queued behind a delay, or a pinned or device allocation in a
+    side epoch, would order the streams by itself and hide a missing wait:
+    hence the upload stream, and 4 unchecked epochs to warm the
+    allocators. 20 default and 20 side epochs, the sides alternating."""
+    from _torch_fabric_parts import make_parts
+
+    from repro_torch.core import memory as mem
+    from repro_torch.core.rar import Outcome, RARConfig
+    from repro_torch.core.shadow import PENDING, ShadowItem
+    from repro_torch.data import tokenizer as tk
+    from repro_torch.serving.fabric import ServingFabric
+    upload, pinned = mem._on, {}
+    copier = torch.cuda.Stream(cuda)
+    yes = torch.ones((), dtype=torch.bool, device=cuda)
+
+    def slow(state, x, dtype):
+        if torch.is_tensor(x):
+            return upload(state, x, dtype)
+        src = torch.as_tensor(np.asarray(x))
+        buf = pinned.get((src.shape, src.dtype))
+        if buf is None:
+            buf = pinned[(src.shape, src.dtype)] = \
+                torch.empty_like(src).pin_memory()
+        buf.copy_(src)
+        with torch.cuda.stream(copier):
+            dev = buf.to(cuda, non_blocking=True)
+        copier.synchronize()
+        stream = torch.cuda.current_stream()
+        dev.record_stream(stream)
+        torch.cuda._sleep(_DELAY if stream == torch.cuda.default_stream()
+                          else _DELAY // 8)
+        return torch.where(yes, dev, dev).to(dtype)
+    monkeypatch.setattr(mem, "_on", slow)
+    C, E, warm = 8, 384, 4
+    parts = make_parts(weak_known=tuple(range(C)))
+    fab = ServingFabric(parts["weak"], parts["strong"], None,
+                        parts["route_weak_fn"],
+                        RARConfig(memory=mem.MemoryConfig(
+                            capacity=C, embed_dim=E, guide_len=4)),
+                        replicas=2, device=cuda)
+    sides = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for epoch in range(warm + 40):
+        rows = _unit_rows(rng, C, E)
+        items = [ShadowItem(
+            seq=fab.learn.shadow.next_seq(), now=C * epoch + i + 1,
+            prompt=np.asarray([tk.BOS, i, epoch], np.int32),
+            guide_request=np.asarray([tk.GUIDE_REQ, i], np.int32),
+            emb=rows[i], strong_ans=(i + epoch) % 4,
+            outcome=Outcome(-1, "strong", 1, PENDING)) for i in range(C)]
+        if epoch % 2 == 0:
+            fab._drain(items)                    # left queued, unread
+            continue
+        with torch.cuda.stream(sides[(epoch // 2) % 2]):
+            fab._drain(items)
+        assert all(it.outcome.case == "case1" for it in items)
+        with fab.commit_stream.lock:
+            got = mem.query_topk_batch(
+                fab.memory, torch.from_numpy(rows).to(cuda), 1).device_get()
+        if epoch < warm:
+            continue
+        np.testing.assert_array_equal(got.index[:, 0], np.arange(C))
+        np.testing.assert_array_equal(got.added_at[:, 0],
+                                      C * epoch + np.arange(C) + 1)
+        assert np.all(got.sim[:, 0] > 0.9999)
+    assert fab.commit_stream.buffer.entries_applied == fab.memory.ptr == \
+        (warm + 40) * C
+    fab.close_shadow()
+
+
+@pytest.mark.cuda
+def test_cuda_process_fabric_matches_thread_fabric_on_r1(cuda):
+    """R1's workload (rar-weak/rar-strong from seeds 0/1, the 4096 x 384
+    store, pool 64 over 2 passes, microbatch 8) through a 2-worker process
+    fabric on the card, serialized, equals the 1-replica thread fabric on
+    the card: Outcome streams, store, FM calls; the workers launched the
+    store-read and flash kernels in their own processes, and the parent's
+    drains (guide generation) the decode kernel."""
+    from _torch_fabric_parts import rar_parts, rar_workload
+
+    from repro_torch.configs import rar_system
+    from repro_torch.serving.fabric import ServingFabric
+    from repro_torch.serving.procfabric import ProcessServingFabric
+    prompts, greqs, embs = rar_workload()
+    cfg = rar_system.make_rar_config()
+    mb = 8
+
+    def batches():
+        for pos in range(0, 2 * len(prompts), mb):
+            first = pos % len(prompts)
+            sl = slice(first, first + mb)
+            yield (prompts[sl], greqs[sl],
+                   list(range(first, first + mb)), embs[sl])
+
+    parts = rar_parts(cuda)
+    ref = ServingFabric(parts["weak"], parts["strong"], None,
+                        parts["route_weak_fn"], cfg, device=cuda)
+    ref_outs = []
+    for p, g, k, e in batches():
+        ref_outs += ref.process_batch(p, g, keys=k, embs=e)
+    ref.close_shadow()
+    fab = ProcessServingFabric(functools.partial(rar_parts, "cuda"), cfg,
+                               workers=2, device=cuda)
+    ops.reset_launches()
+    try:
+        outs = []
+        for p, g, k, e in batches():
+            outs += fab.submit(p, g, keys=k, embs=e).wait(timeout=300)
+        fab.flush_shadow(timeout=300)
+        assert [tuple(vars(o).values()) for o in outs] == \
+            [tuple(vars(o).values()) for o in ref_outs]
+        assert sum(o.strong_calls for o in outs) == 192
+        for f in ("emb", "mask", "guide", "hard", "added_at"):
+            assert torch.equal(getattr(fab.memory, f),
+                               getattr(ref.memory, f)), f
+        assert fab.memory.ptr == ref.memory.ptr
+        for tier in ("weak", "strong"):
+            assert fab.engine_calls(tier) == \
+                getattr(ref.learn, tier).engine.calls
+        launched = fab.worker_launches()
+        for k in ("memory_topk", "flash_attention"):
+            assert launched.get(k, 0) > 0, launched
+        assert launched.get("decode_attention", 0) == 0, launched
+        assert ops.launch_counts()["decode_attention"] > 0
+    finally:
+        fab.close_shadow()
+
+
+@pytest.mark.cuda
+def test_cuda_process_fabric_refuses_fork(cuda):
+    from _torch_fabric_parts import factory
+
+    from repro_torch.core.rar import RARConfig
+    from repro_torch.serving.procfabric import ProcessServingFabric
+    with pytest.raises(ValueError, match="fork"):
+        ProcessServingFabric(factory(), RARConfig(), start_method="fork",
+                             device=cuda)

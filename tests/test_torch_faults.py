@@ -1,10 +1,11 @@
 """The port's fault-tolerance plane against the JAX package's: the twin of
-the non-fabric cases of ``tests/test_faults.py`` (its lines 69-446 and
-598-851): fault plans, tier retries and the circuit breaker (static and
-adaptive), sequential and batched brownouts with their replay, the drain
-fault at the async barrier, and every journal case (recovery, WAL crash,
-apply crash, torn tail, bit flip, truncated frame, resumed serving, the
-sequential manifest).
+``tests/test_faults.py``: fault plans, tier retries and the circuit
+breaker (static and adaptive), sequential and batched brownouts with their
+replay, the drain fault at the async barrier, every journal case
+(recovery, WAL crash, apply crash, torn tail, bit flip, truncated frame,
+resumed serving, the sequential manifest), and the thread fabric's
+recovery plane (its brownout, crash redispatch, bounded redispatch,
+bounded barriers, journal and soak; JAX's lines 447-597 and 853 on).
 
 Plans are compared with JAX's spec for spec; runs that do not depend on
 the wall clock are compared with JAX's run on the same stream (Outcome
@@ -670,3 +671,234 @@ def test_journal_refuses_the_ivf_plane_and_frames_hold_no_tensor(tmp_path):
     walk(recs)
     assert isinstance(recs[0]["records"][0][1], np.ndarray)
     assert _host(recs[0]["records"][0][1]).dtype == np.float32
+
+
+# ---------------------------------------------------------------------------
+# The fabric's recovery plane (tests/test_faults.py lines 447-597 and 853)
+# ---------------------------------------------------------------------------
+
+
+def _serve_serialized(fab, stream, batch):
+    """``test_faults.serve_serialized``: one ticket at a time, so the
+    serve order is deterministic across a crash and its redispatch."""
+    outs = []
+    for start in range(0, len(stream), batch):
+        chunk = stream[start:start + batch]
+        t = fab.submit([prompt(s, x) for s, x in chunk],
+                       [greq(s) for s, _ in chunk], keys=chunk,
+                       embs=np.stack([skill_emb(s) for s, _ in chunk]))
+        outs += t.wait(timeout=WAIT)
+    fab.flush_shadow(timeout=WAIT)
+    return outs
+
+
+def _fabric_pair(replicas, weak_known, jplan=None, tplan=None, **cfg_kw):
+    """A JAX and a port thread fabric over the same FakeTier rules."""
+    from test_faults import build_fabric as jbuild
+    from test_torch_fabric import build_fabric as tbuild
+    return (jbuild(replicas, weak_known=weak_known, fault_plan=jplan,
+                   **cfg_kw),
+            tbuild(replicas, weak_known=weak_known, fault_plan=tplan,
+                   **cfg_kw))
+
+
+def _same_fabric(j, jouts, t, touts):
+    assert _plain(touts) == _plain(jouts)
+    _same_store(j.memory, t.memory)
+    assert (t.now, t.guides_from_memory, t.guides_generated) == \
+        (j.now, j.guides_from_memory, j.guides_generated)
+    assert t.learn.weak.engine.calls == j.learn.weak.engine.calls
+    assert t.learn.strong.engine.calls == j.learn.strong.engine.calls
+
+
+def test_fabric_brownout_zero_errored_tickets():
+    """test_faults.py::test_fabric_brownout_zero_errored_tickets: one
+    shared breaker across replicas; no ticket errors; the deferred probes
+    replay once it closes."""
+    from test_torch_fabric import build_fabric
+    plan = FaultPlan([FaultPlan.tier_error("strong", at=1, count=1)])
+    fab = build_fabric(2, weak_known={0, 1}, fault_plan=plan,
+                       tier_max_retries=0, breaker_threshold=1,
+                       breaker_cooldown=0.05)
+    assert isinstance(fab.learn.strong, ResilientTier)
+    assert all(r.strong is fab.learn.strong for r in fab.replicas)
+    outs = _serve_serialized(fab, make_stream(), 4)
+    assert all(o.response is not None for o in outs)
+    stats = fab.stats()
+    assert stats["probes_deferred"] > 0
+    assert stats["strong_resilience"]["failures"] == 1
+    time.sleep(0.08)
+    fab.flush_shadow(timeout=WAIT)
+    stats = fab.stats()
+    assert stats["probes_replayed"] == stats["probes_deferred"]
+    assert fab.learn.strong.breaker.state == "closed"
+    fab.close_shadow()
+
+
+@pytest.mark.parametrize("replicas,crash_at", [(2, 2), (1, 3)])
+def test_replica_crash_redispatch_matches_no_fault_run_and_jax(replicas,
+                                                               crash_at):
+    """test_faults.py::test_replica_crash_redispatch_byte_identical_to_no_
+    fault_run (2 replicas) and ::test_single_replica_crash_restarts_and_
+    recovers (1): the redispatched run equals the port's no-fault
+    ``MicrobatchRAR`` run and JAX's fabric under the same crash."""
+    from test_torch_shadow import assert_same, build, serve_stream
+    stream = make_stream()
+    ref, _ = build("torch", weak_known={0, 1})
+    ref_outs = serve_stream(ref, stream, 4)
+    j, t = _fabric_pair(
+        replicas, {0, 1},
+        jplan=jfaults.FaultPlan([jfaults.FaultPlan.replica_crash(
+            0, at=crash_at)]),
+        tplan=FaultPlan([FaultPlan.replica_crash(0, at=crash_at)]))
+    touts = _serve_serialized(t, stream, 4)
+    assert_same(ref, ref_outs, t.learn, touts)
+    _same_fabric(j, _serve_serialized(j, stream, 4), t, touts)
+    assert t.deaths == 1 and t.restarts == 1
+    assert t.redispatches == j.redispatches == 1
+    assert t.health == ["healthy"] * replicas
+    j.close_shadow()
+    t.close_shadow()
+
+
+def test_bounded_redispatch_exhaustion_surfaces_crash():
+    from test_torch_fabric import build_fabric
+    plan = FaultPlan([FaultPlan.replica_crash(0, count=100),
+                      FaultPlan.replica_crash(1, count=100)])
+    fab = build_fabric(2, weak_known={0}, fault_plan=plan, max_redispatch=2)
+    t = fab.submit([prompt(0, 1)], [greq(0)], embs=skill_emb(0)[None],
+                   replica=0)
+    with pytest.raises(RuntimeError) as ei:
+        t.wait(timeout=WAIT)
+    assert isinstance(ei.value.__cause__, ReplicaCrash)
+    assert t.redispatches == 2
+    assert fab.deaths == 3 and fab.restarts == 3
+    with pytest.raises(RuntimeError):
+        fab.join(timeout=WAIT)
+    plan.specs.clear()
+    assert len(_serve_serialized(fab, [(0, 2), (1, 3)], 2)) == 2
+    fab.close_shadow()
+
+
+def test_app_level_error_is_not_redispatched():
+    from test_torch_fabric import build_fabric
+    fab = build_fabric(2, weak_known={0})
+    boom = RuntimeError("app bug")
+
+    def dying(prompts):
+        raise boom
+
+    fab.replicas[1].strong = FakeTier(known=range(10_000), can_guide=True)
+    fab.replicas[1].strong.answer_batch = dying
+    t = fab.submit([prompt(5, 1)], [greq(5)], embs=skill_emb(5)[None],
+                   replica=1)
+    with pytest.raises(RuntimeError) as ei:
+        t.wait(timeout=WAIT)
+    assert ei.value.__cause__ is boom
+    assert t.redispatches == 0 and fab.redispatches == 0
+    with pytest.raises(RuntimeError):
+        fab.join(timeout=WAIT)
+    fab.close_shadow()
+
+
+def test_ticket_wait_timeout_and_error_chain():
+    """test_faults.py::test_ticket_wait_timeout_then_still_waitable and
+    ::test_ticket_wait_chains_worker_error."""
+    from repro_torch.serving.fabric import Ticket
+    t = Ticket(replica=0)
+    with pytest.raises(TimeoutError):
+        t.wait(timeout=0.01)
+    t.outcomes = ["ok"]
+    t._done.set()
+    assert t.wait(timeout=1) == ["ok"]
+    t = Ticket(replica=3)
+    cause = ValueError("inner")
+    t.error = cause
+    t._done.set()
+    with pytest.raises(RuntimeError) as ei:
+        t.wait()
+    assert ei.value.__cause__ is cause
+    assert "replica 3" in str(ei.value)
+
+
+def test_fabric_join_timeout_keeps_tickets_registered():
+    from test_torch_fabric import build_fabric
+    fab = build_fabric(1, weak_known={0})
+    gate = threading.Event()
+    orig = fab.replicas[0].process_batch
+
+    def gated(*a, **kw):
+        gate.wait(WAIT)
+        return orig(*a, **kw)
+
+    fab.replicas[0].process_batch = gated
+    fab.submit([prompt(0, 1)], [greq(0)], embs=skill_emb(0)[None])
+    with pytest.raises(TimeoutError):
+        fab.join(timeout=0.05)
+    assert fab._tickets
+    gate.set()
+    fab.join(timeout=WAIT)
+    gate.clear()
+    fab.submit([prompt(0, 2)], [greq(0)], embs=skill_emb(0)[None])
+    with pytest.raises(TimeoutError):
+        fab.flush_shadow(timeout=0.05)
+    gate.set()
+    fab.flush_shadow(timeout=WAIT)
+    fab.close_shadow()
+
+
+def test_fabric_with_journal_recovers_across_restart_as_jax(tmp_path):
+    """test_faults.py::test_fabric_with_journal_recovers_across_restart: a
+    journaled 2-replica fabric served serialized, closed and rebuilt on
+    the same path recovers its store and epoch, equal to JAX's doing the
+    same (each package on a journal of its own), and serves from it."""
+    from test_faults import build_fabric as jbuild
+    from test_torch_fabric import build_fabric as tbuild
+    stores = {}
+    for pkg, build in (("jax", jbuild), ("torch", tbuild)):
+        kw = dict(weak_known={0, 1}, journal_path=str(tmp_path / pkg),
+                  snapshot_every=2)
+        fab = build(2, **kw)
+        _serve_serialized(fab, make_stream(), 4)
+        fab.close_shadow()
+        ref_epoch = fab.commit_stream.buffer.epoch
+        fab2 = build(2, **kw)
+        _same_store(fab.memory, fab2.memory)
+        assert fab2.commit_stream.buffer.epoch == ref_epoch
+        out = fab2.process_batch([prompt(0, 7)], [greq(0)],
+                                 embs=skill_emb(0)[None])[0]
+        assert out.strong_calls == 0
+        stores[pkg] = (fab2.memory, ref_epoch)
+        fab2.close_shadow()
+    _same_store(stores["jax"][0], stores["torch"][0])
+    assert stores["jax"][1] == stores["torch"][1]
+
+
+def test_soak_random_fault_schedule():
+    """test_faults.py::test_soak_random_fault_schedule on the port."""
+    from test_torch_fabric import build_fabric
+    plan = random_plan(int(os.environ.get("REPRO_SOAK_SEED", "0")),
+                       replicas=3, crashes=3, tier_errors=2, horizon=30)
+    fab = build_fabric(3, weak_known={0, 1}, fault_plan=plan,
+                       tier_max_retries=1, breaker_threshold=2,
+                       breaker_cooldown=0.05)
+    rng = np.random.default_rng(0)
+    tickets, n = [], 0
+    for _ in range(40):
+        chunk = [(int(rng.integers(0, 10)), int(rng.integers(0, 8)))
+                 for _ in range(int(rng.integers(1, 4)))]
+        n += len(chunk)
+        tickets.append(fab.submit(
+            [prompt(s, x) for s, x in chunk], [greq(s) for s, _ in chunk],
+            embs=np.stack([skill_emb(s) for s, _ in chunk])))
+    time.sleep(0.08)
+    fab.flush_shadow(timeout=WAIT)
+    outs = [o for t in tickets for o in t.wait(timeout=WAIT)]
+    assert len(outs) == n
+    assert all(o.response is not None for o in outs)
+    assert fab.restarts == fab.deaths
+    assert fab.commit_stream.buffer.entries_applied == fab.memory.ptr
+    stats = fab.stats()
+    assert stats["items_enqueued"] == stats["items_drained"]
+    assert plan.n_fired > 0
+    fab.close_shadow()

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module (and
-``chip_smoke.py``) loads neither JAX nor the JAX package; entry points
-refuse to run without CUDA unless asked for the CPU; ``chip_smoke.py``
-fails and prints no result on a machine without a card."""
+``chip_smoke.py``) loads neither JAX nor the JAX package, and neither does
+a process fabric's spawned worker; entry points refuse to run without CUDA
+unless asked for the CPU; ``chip_smoke.py`` fails and prints no result on
+a machine without a card."""
 import os
 import pkgutil
 import subprocess
@@ -41,7 +42,10 @@ def test_no_jax_or_reference_package_in_sys_modules():
               "repro_torch.experiments.stages",
               "repro_torch.serving.metrics", "repro_torch.serving.faults",
               "repro_torch.serving.transport", "repro_torch.core.shadow",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.serving.fabric",
+              "repro_torch.serving.procfabric",
+              "repro_torch.serving.scheduler",
+              "repro_torch.serving.loadgen"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -100,3 +104,28 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          timeout=120, cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_spawned_worker_loads_no_jax():
+    """A process fabric's worker builds its replica from a factory that
+    raises if any JAX or JAX-package module is loaded in the worker: the
+    worker comes up and serves, so none is."""
+    import numpy as np
+    from _torch_fabric_parts import factory, jax_free_parts
+
+    from repro_torch.core.rar import RARConfig
+    from repro_torch.data import tokenizer as tk
+    from repro_torch.serving.procfabric import ProcessServingFabric
+    cfg = RARConfig(memory=memory.MemoryConfig(capacity=8, embed_dim=16,
+                                               guide_len=8))
+    fab = ProcessServingFabric(factory(jax_free_parts, (0,)), cfg,
+                               workers=1, device="cpu")
+    try:
+        t = fab.submit([np.asarray([tk.BOS, 0, 1], np.int32)],
+                       [np.asarray([tk.GUIDE_REQ, 0], np.int32)],
+                       keys=[(0, 1)],
+                       embs=np.full((1, 16), 0.25, np.float32))
+        assert t.wait(timeout=120)[0].case == "case1"
+        assert fab.startup_failures == 0 and fab.deaths == 0
+    finally:
+        fab.close_shadow()

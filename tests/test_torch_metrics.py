@@ -1,6 +1,5 @@
 """The port's metrics plane and adaptive drain cadence against the JAX
-package's: the twin of the non-fabric cases of ``tests/test_metrics.py``
-(its lines 30-207 and 313-352).
+package's: the twin of ``tests/test_metrics.py``.
 
 * the registry, its reservoir and its OpenMetrics exposition, which must
   be byte-equal to JAX's for the same calls;
@@ -8,7 +7,10 @@ package's: the twin of the non-fabric cases of ``tests/test_metrics.py``
   against JAX), the cold start, and ``flush_every`` as a staleness cap;
 * the cost model fitted from fixed ``note_drain`` inputs, equal to JAX's
   ``(overhead, per_item)`` within 1e-9;
-* registry snapshots stay consistent while the async drainer runs.
+* registry snapshots stay consistent while the async drainer runs;
+* the fabric's metrics (consistent under three replicas' drainers, JAX's
+  shape), its shared adaptive policy, the autoscaling policy (decision for
+  decision JAX's) and the supervisor tick, counted before its resize.
 """
 import threading
 import time
@@ -268,3 +270,191 @@ def test_to_openmetrics_exposition_format():
 
 def test_to_openmetrics_empty_registry_is_just_eof():
     assert MetricsRegistry().to_openmetrics() == "# EOF\n"
+
+
+# ---------------------------------------------------------------------------
+# The fabric's metrics plane and autoscaling (tests/test_metrics.py lines
+# 209-444)
+# ---------------------------------------------------------------------------
+
+
+def _fabric(replicas, **kw):
+    from test_torch_fabric import build_fabric
+    return build_fabric(replicas, **kw)
+
+
+def _serve_fabric(fab, stream, batch):
+    from test_torch_fabric import serve_fabric
+    return serve_fabric(fab, stream, batch, submit=True)
+
+
+def test_fabric_metrics_consistent_under_threaded_stress():
+    """test_metrics.py::test_fabric_metrics_consistent_under_threaded_
+    stress: three replicas (three async drainers) serving while a sampler
+    reads ``fabric.metrics()``: no torn snapshot, counters monotone."""
+    fab = _fabric(3, weak_known=set(), shadow_mode="async",
+                  shadow_flush_every=2)
+    stop, failures, prev = threading.Event(), [], {}
+
+    def sampler():
+        while not stop.is_set():
+            try:
+                m = fab.metrics()
+                for rep in m["replicas"]:
+                    assert 0 <= rep["items_drained"] <= rep["items_enqueued"]
+                    assert rep["commit_epoch_lag"] >= 0
+                    assert rep["shadow_pending"] >= 0
+                _check_snapshot(m["registry"], prev)
+                assert m["commit"]["epoch"] >= prev.get("__epoch", 0)
+                prev["__epoch"] = m["commit"]["epoch"]
+            except AssertionError as e:
+                failures.append(e)
+                return
+            time.sleep(0.0005)
+
+    th = threading.Thread(target=sampler)
+    th.start()
+    try:
+        outs = _serve_fabric(fab, make_stream() * 3, 4)
+    finally:
+        stop.set()
+        th.join(timeout=WAIT)
+    assert not failures, failures[0]
+    assert len(outs) == len(make_stream()) * 3
+    learn = fab.metrics()["replicas"][0]
+    assert learn["items_enqueued"] == learn["items_drained"]
+    assert learn["shadow_pending"] == 0
+    fab.close_shadow()
+
+
+def test_fabric_metrics_shape_matches_jax():
+    """test_metrics.py::test_fabric_metrics_shape, and the port's snapshot
+    has JAX's keys and, for this deterministic run, its numbers (the
+    registry's drain-second histograms aside: wall time)."""
+    from test_fabric import build_fabric as jbuild
+    from test_fabric import serve_fabric as jserve
+    stream = make_stream()
+    fab = _fabric(2, weak_known={0, 1})
+    outs = _serve_fabric(fab, stream, 4)
+    assert all(o.case != "shadow_pending" for o in outs)
+    m = fab.metrics()
+    assert len(m["replicas"]) == 2
+    for rep in m["replicas"]:
+        assert rep["queue_depth"] == 0
+        assert rep["shadow_pending"] == 0
+        assert rep["commit_epoch_lag"] == 0
+    assert m["commit"]["epoch"] >= 1
+    assert m["commit"]["entries_applied"] >= 1
+    assert set(m["engines"]) == {"weak", "strong"}
+    assert m["supervision"]["deaths"] == 0
+    assert m["supervision"]["active_replicas"] == 2
+    assert m["registry"]["replica0/shadow/drain_items"]["count"] >= 1
+    assert m["registry"]["replica0/shadow/drain_staleness_batches"][
+        "count"] >= 1
+    jfab = jbuild(2, weak_known={0, 1})
+    jserve(jfab, stream, 4)
+    jm = jfab.metrics()
+    assert set(m) == set(jm)
+    assert [set(r) for r in m["replicas"]] == \
+        [set(r) for r in jm["replicas"]]
+    assert set(m["registry"]) == set(jm["registry"])
+    assert m["supervision"] == jm["supervision"]
+    assert m["autoscaler"] == jm["autoscaler"]
+    fab.close_shadow()
+    jfab.close_shadow()
+
+
+def test_fabric_adaptive_shares_one_policy_across_replicas():
+    fab = _fabric(2, weak_known=set(), shadow_mode="adaptive",
+                  shadow_flush_every=0)
+    assert isinstance(fab.drain_policy, AdaptiveDrainPolicy)
+    for r in fab.replicas:
+        assert r.shadow.drain_policy is fab.drain_policy
+    assert fab.metrics()["drain_policy"] is not None
+    outs = _serve_fabric(fab, make_stream(), 4)
+    assert all(o.case != "shadow_pending" for o in outs)
+    m = fab.metrics()
+    assert m["drain_policy"]["decisions"] > 0
+    learn = m["replicas"][0]
+    assert learn["items_enqueued"] == learn["items_drained"]
+    fab.close_shadow()
+
+
+def test_fabric_exports_openmetrics():
+    fab = _fabric(2, weak_known={0, 1})
+    _serve_fabric(fab, make_stream(), 4)
+    text = fab.metrics_registry.to_openmetrics()
+    assert "replica0_shadow_items_enqueued_total" in text
+    assert text.endswith("# EOF\n")
+    fab.close_shadow()
+
+
+def _synthetic_metrics(active, depths, p99=None, count=100):
+    m = {"replicas": [{"replica": i, "health": "healthy", "queue_depth": d}
+                      for i, d in enumerate(depths)],
+         "supervision": {"active_replicas": active}, "registry": {}}
+    if p99 is not None:
+        m["registry"]["sched/queue_delay_ms"] = {
+            "count": count, "total": p99 * count, "mean": p99,
+            "p50": p99 / 2, "p99": p99}
+    return m
+
+
+def test_queue_latency_autoscaler_decisions_match_jax():
+    """test_metrics.py::test_queue_latency_autoscaler_policy_decisions and
+    ::test_autoscaler_latency_signal_without_slo_ignored, each decision
+    and the stats equal to JAX's policy's."""
+    from repro.serving.fabric import QueueLatencyAutoscaler as JPolicy
+    from repro_torch.serving.fabric import QueueLatencyAutoscaler
+    cases = [((2, [5, 6]), 3), ((2, [0, 1], 80.0), 3),
+             ((3, [0, 0, 0], 5.0), 2), ((2, [1, 1], 30.0), 2),
+             ((1, [0]), 1), ((4, [9, 9, 9, 9]), 4),
+             ((2, [0, 0], 999.0, 0), None)]
+    pol = QueueLatencyAutoscaler(min_replicas=1, max_replicas=4,
+                                 slo_ms=50.0)
+    jpol = JPolicy(min_replicas=1, max_replicas=4, slo_ms=50.0)
+    for args, want in cases:
+        got = pol(_synthetic_metrics(*args))
+        assert got == jpol(_synthetic_metrics(*args))
+        assert got == want if want is not None else got in (1, 2)
+    s = pol.stats()
+    assert s == jpol.stats()
+    assert s["decisions"] == 7
+    assert s["scale_ups"] >= 2 and s["scale_downs"] >= 1
+    with pytest.raises(ValueError):
+        QueueLatencyAutoscaler(min_replicas=3, max_replicas=2)
+    pol = QueueLatencyAutoscaler(slo_ms=None)
+    assert pol(_synthetic_metrics(2, [0, 0], p99=1e9)) == 1
+    assert pol(_synthetic_metrics(2, [9, 9], p99=0.0)) == 3
+
+
+def test_supervisor_tick_drives_health_gated_autoscale():
+    """test_metrics.py::test_supervisor_tick_drives_health_gated_autoscale,
+    deterministically: the port counts a tick before its resize, so once
+    the fleet shows 3 replicas the tick that made it is counted (JAX's
+    twin races there)."""
+    fab = _fabric(1, weak_known={0, 1})
+    _serve_fabric(fab, make_stream(), 4)
+    fab.start_autoscaler(interval_s=0.02, policy=lambda m: 3)
+    deadline = time.monotonic() + WAIT
+    while fab.active_replicas < 3 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert fab.active_replicas == 3
+    assert fab.autoscale_ticks >= 1
+    assert fab.metrics()["autoscaler"]["ticks"] >= 1
+    fab.close_shadow()
+    assert fab._autoscale_thread is None
+    ticks_at_close = fab.autoscale_ticks
+    time.sleep(0.1)
+    assert fab.autoscale_ticks == ticks_at_close
+
+
+def test_default_policy_installed_by_start_autoscaler():
+    from repro_torch.serving.fabric import QueueLatencyAutoscaler
+    fab = _fabric(2, weak_known={0, 1})
+    fab.start_autoscaler(interval_s=30.0)
+    assert isinstance(fab.autoscale_policy, QueueLatencyAutoscaler)
+    assert fab.metrics()["autoscaler"]["policy"]["policy"] == \
+        "QueueLatencyAutoscaler"
+    assert fab.autoscale() <= 0
+    fab.close_shadow()

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_fabric_parts import rar_workload
 from test_pipeline import MEM_FIELDS, SCENARIOS, make_stream
 from test_rar_controller import FakeTier, greq, make_cfg, prompt, skill_emb
 
@@ -294,18 +295,7 @@ def test_deferred_flush_every_batch_equals_inline():
 def _workload(n: int):
     """``benchmarks/rar_throughput.py::_workload``: n distinct questions
     and deterministic hash embeddings."""
-    vocab = TVocab(n_domains=3)
-    prompts, greqs, embs = [], [], []
-    i = 0
-    while len(prompts) < n:
-        d, s, x = i % 3, (i // 3) % 16, (i // 48) % 10
-        i += 1
-        prompts.append(np.asarray(vocab.question(d, s, x), np.int32))
-        greqs.append(np.asarray(vocab.guide_request(d, s), np.int32))
-        rng = np.random.default_rng(abs(hash((d, s, x))) % (2 ** 31))
-        e = rng.normal(size=384).astype(np.float32)
-        embs.append(e / np.linalg.norm(e))
-    return prompts, greqs, np.stack(embs)
+    return rar_workload(n)
 
 
 def _throughput_run(ctrl, prompts, greqs, embs, mb):

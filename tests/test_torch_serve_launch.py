@@ -7,8 +7,9 @@ the weights JAX serves. Its per-stage strong calls and aligned answers
 must equal JAX's ``run_rar_experiment`` with the same flags: inline, and
 async at ``--shadow-flush-every 1`` with a barrier after every batch on
 both sides (an unbarriered async run is not deterministic). A journaled
-run restarts to the same store and manifest, and the fabric options raise
-``NotImplementedError``.
+run restarts to the same store and manifest, and the fabric options
+(serve replicas, the process transport, open-loop arrivals) serve every
+request.
 """
 import copy
 import dataclasses
@@ -18,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from test_torch_fabric import check_fabric_run, record_tickets
 
 from repro.configs.rar_system import make_rar_config as jmake_cfg
 from repro.experiments import setup as jsetup
@@ -159,8 +161,50 @@ def test_journaled_launcher_restarts_to_the_same_store(launch, tmp_path,
 
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"],
-                                  ["--transport", "process"],
-                                  ["--arrival-pattern", "poisson"]])
-def test_fabric_options_raise(launch, flag):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        launch(ARGS + flag)
+                                  ["--replicas", "2", "--transport",
+                                   "process"],
+                                  ["--replicas", "2", "--arrival-pattern",
+                                   "poisson"]])
+def test_fabric_options_raise(launch, flag, monkeypatch, tmp_path):
+    """The fabric options no longer raise: ``--replicas 2`` (the thread
+    fabric), with ``--transport process`` and with ``--arrival-pattern
+    poisson`` serve every request once a stage, the stage totals are the
+    tickets' sums, the ring pointer is at the entries applied, and (open
+    loop) the metrics JSON carries the scheduler's entries, one
+    queueing-delay sample a request."""
+    process, poisson = "process" in flag, "poisson" in flag
+    tickets = record_tickets(monkeypatch)
+    mjson = str(tmp_path / "m.json")
+    results, rar = launch(ARGS + flag + ["--metrics-json", mjson])
+    check_fabric_run(results, rar, tickets, 40, poisson)
+    met = json.load(open(mjson))
+    assert len(met["replicas"]) == (1 if process else 2)
+    assert "replica0/shadow/items_enqueued" in met["registry"]
+    if process:
+        assert len(met["workers"]) == 2
+    if poisson:
+        assert met["registry"]["sched/admitted"] == 80
+
+
+@pytest.mark.parametrize("flags", [
+    ["--replicas", "0"],
+    ["--transport", "process"],
+    ["--replicas", "2", "--transport", "process", "--router", "learned"],
+    ["--arrival-pattern", "poisson"],
+    ["--replicas", "2", "--arrival-pattern", "bursty", "--arrival-rate", "0"],
+    ["--replicas", "2", "--arrival-pattern", "poisson", "--slo-ms", "0"],
+    ["--replicas", "2", "--arrival-pattern", "poisson", "--priorities",
+     "0,x"],
+    ["--replicas", "2", "--priorities", "0,1"],
+    ["--replicas", "2", "--slo-ms", "5"],
+    ["--shadow-mode", "async", "--microbatch", "1"]])
+def test_launcher_rejects_what_jax_rejects(flags, monkeypatch):
+    """The fabric flags' validation taken over from the JAX launcher
+    (``src/repro/launch/serve.py:237-262``): each combination it refuses
+    exits with a usage error before any system is built."""
+    def no_build(device):
+        raise AssertionError("the launcher built a system for bad flags")
+    monkeypatch.setattr(serve, "build_system", no_build)
+    with pytest.raises(SystemExit) as ei:
+        serve.main(["--device", "cpu", "--log-every", "0"] + flags)
+    assert ei.value.code == 2

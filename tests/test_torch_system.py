@@ -17,6 +17,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from test_torch_fabric import FABRIC_MODES, check_fabric_run, record_tickets
 
 from repro.experiments import setup as jsetup
 from repro.experiments import stages as jstages
@@ -105,20 +106,48 @@ def test_baselines_match_jax(jsys, pool, base):
         tstages.aggregate_shuffles([base["weak"], base["strong"]])
 
 
-def test_unported_modes_refused(system, pool):
-    """The serving fabrics' options still raise, naming ROADMAP item 5;
-    the shadow modes, fault plans and ``metrics_every`` now run."""
-    for kw in (dict(replicas=2), dict(transport="process"),
-               dict(arrival_pattern="poisson")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tstages.run_rar_experiment(system, pool, device="cpu", **kw)
+def test_unported_modes_refused(system, pool, monkeypatch):
+    """No mode of ``run_rar_experiment`` is refused any more: each option
+    runs on ``pool[:16]``, one stage at microbatch 8 (the shadow modes, a
+    fault plan, ``metrics_every``, and the serving fabrics' modes: serve
+    replicas, the process transport, open-loop arrivals), each fabric run
+    held to what the JAX package's tests check of it."""
     from repro_torch.serving.faults import FaultPlan
-    for kw in (dict(fault_plan=FaultPlan()), dict(metrics_every=8),
-               dict(shadow_mode="async"), dict(shadow_mode="adaptive")):
+    modes = {"fault_plan": dict(fault_plan=FaultPlan()),
+             "metrics_every": dict(metrics_every=8),
+             "async": dict(shadow_mode="async"),
+             "adaptive": dict(shadow_mode="adaptive"), **FABRIC_MODES}
+    for mode, kw in modes.items():
+        tickets = record_tickets(monkeypatch)
         results, rar = tstages.run_rar_experiment(
             system, pool[:16], n_stages=1, microbatch=8, device="cpu", **kw)
         rar.close_shadow()
-        assert len(results) == 1 and results[0].n == 16
+        assert len(results) == 1 and results[0].n == 16, mode
+        if mode in FABRIC_MODES:
+            check_fabric_run(results, rar, tickets, 16, mode == "poisson")
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(transport="carrier-pigeon"),
+    dict(transport="process"),
+    dict(replicas=2, transport="process", router_kind="learned"),
+    dict(arrival_pattern="poisson"),
+    dict(replicas=2, arrival_pattern="uniform"),
+    dict(replicas=2, arrival_pattern="poisson", arrival_rate=0.0),
+    dict(replicas=2, prepopulate="pool")])
+def test_fabric_options_refused_as_jax_refuses(system, jsys, pool, kw):
+    """``run_rar_experiment``'s fabric options refuse what the JAX
+    package's refuse (``src/repro/experiments/stages.py:376-405``), with a
+    ValueError, before serving anything."""
+    kw = dict(kw)
+    if kw.pop("prepopulate", None):
+        kw["prepopulate_from"] = pool[:4]
+    with pytest.raises(ValueError):
+        jstages.run_rar_experiment(jsys, pool[:8], n_stages=1, **kw)
+    with pytest.raises(ValueError):
+        tstages.run_rar_experiment(system, pool[:8], n_stages=1,
+                                   device="cpu", **kw)
 
 
 # ---------------------------------------------------------------------------
