@@ -79,11 +79,32 @@ Phases, each of which fails the run on any error:
   of the 2-replica closed-loop rate print queue delay and end-to-end
   latency. F5: ``repro_torch.launch.serve.main`` on Phase S's system with
   two worker processes and Poisson arrivals answers every request.
+* M (after F): the sharded guide store (``core/memory_sharded.py``),
+  logical shards on the one card. M1: R1's configuration, workload and
+  tiers on ``ShardedMemory`` at 2 and 4 shards (beside R1 again, warm, on
+  one store) equal R1's card run field for field (192 strong calls,
+  ``to_single_device`` the same store); async at flush-every 4 on 4 shards
+  keeps Phase A2's queue invariants, holds min(ptr, C) valid rows and reads
+  bit for bit as its ``to_single_device``.
+  M2: the exact reads (``query``, ``query_batch``, top-k at k = 1 and 4,
+  B = 32, both views) at E = 384 on stores of 65536 and 4,194,304 rows at
+  1, 4, 8 and 16 shards are bit-identical to a single-device store that
+  took the same commits (at 65536 also to the CPU's plain reads; top-4 at
+  4,194,304 rows, past the top-k kernel's list mode on one store, only at
+  16 shards, against the kernel's plain version on the card), with
+  CUDA-event and device times beside the single-device read's and the
+  bytes' bound.
+  M3: I2's setting on a 4-shard backing (the route merged from 4 planes)
+  serves I2's Outcome stream, store and index, reads as I2's card and CPU
+  reads bit for bit and has I2's recall@4; its read is timed beside I2's.
+  M4: ``ServingFabric`` with 2 thread replicas, serialized, over one
+  4-shard store equals R1.
 
 The launch counters are zeroed right before each main-path phase (for S,
-before S1; A1-A3 together, A4 alone, F1-F4 together, F5 alone) and read
-right after it, a process fabric's workers' counts added; a kernel of the
-path that did not launch fails the run.
+before S1; A1-A3 together, A4 alone, F1-F4 together, M1-M4 together, F5
+alone) and read right after it, a process fabric's workers' counts added,
+Phase M's timed reads' launches taken out; a kernel of the path that did
+not launch fails the run.
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": ...}``.
 
@@ -134,6 +155,15 @@ F_ASYNC_FLUSH = 4                # F2: async drain cadence
 F4_SEED, F4_RATE, F4_SLO_MS = 19, 400.0, 10.0   # F4: the open-loop trace
 F4_LOADS = (0.5, 0.9)            # F4: paced runs, of F2's closed-loop rate
 F5_REQUESTS = 64                 # F5: the launcher's pool
+M1_SHARDS = (2, 4)               # M1: logical shards of R1's store
+M2_CAPACITIES = (65536, 4_194_304)   # M2: stores of 384-lane rows
+M2_SHARDS = (1, 4, 8, 16)        # M2: shards beside the single-device store
+# M2: where the top-k kernel takes k = 4 (0: the single-device store); its
+# list mode merges at most ~385K rows at B = 32 (a head per tile in shared
+# memory), so at 4,194,304 rows only the 16-shard store reads top-4
+M2_TOPK4 = {4_194_304: (16,)}
+M2_COMMIT, M2_B = 65536, 32      # M2: rows a commit, queries a read
+M3_SHARDS = 4                    # M3: I2's store on a sharded backing
 
 
 def log(*a):
@@ -466,7 +496,7 @@ def phase_k(torch):
     cfg, full_store, i2_rng, protos, _ = i2_store(torch)
     store = wrap_store(full_store(dev), cfg)
     store._refresh()
-    (cent, cmask, cidmap), st = store._plane, store.store
+    (cent, cmask, cidmap), st = store._planes[0], store.store
     members, assign, emb = store._members_dev, store._assign_dev, st.emb
     maskp, C, Ep = st.mask, store.capacity, emb.shape[1]
     n_probe, M = store.probes, store.bucket_cap
@@ -764,8 +794,10 @@ def serve_rar(device, tiers, emb_params, mb, prompts, greqs, embs, vocab,
 
 def same_store(a, b, emb_atol=0.0):
     """Every store field equal; ``emb`` within ``emb_atol`` (R2 stores
-    embeddings computed on either device)."""
+    embeddings computed on either device). A sharded store is compared as
+    the single-device store it gathers into."""
     import torch
+    a, b = (getattr(x, "to_single_device", lambda x=x: x)() for x in (a, b))
     err = (a.emb.cpu() - b.emb.cpu()).abs().max().item()
     if err > emb_atol:
         raise AssertionError(f"store emb differs card vs CPU by {err}")
@@ -1026,8 +1058,9 @@ def phase_i(torch, ops, tiers, r_results):
             f"stats {c[0].memory.stats()}; closest served sim to the 0.6 "
             f"threshold {threshold_margin(c[4]):.6f} away; card "
             f"{n / c[2]:.1f} req/s, CPU {n / h[2]:.1f} req/s")
-        results[f"I2_mb{mb}"] = dict(strong_calls=strong,
-                                     req_per_s=n / c[2])
+        results[f"I2_mb{mb}"] = dict(
+            strong_calls=strong, req_per_s=n / c[2], ctrl=c[0],
+            outcomes=[dataclasses.astuple(o) for o in c[1]])
         served = dict(card=c[0].memory, cpu=h[0].memory)
 
     # I3: the top-1 reads on that store, card against CPU
@@ -1071,7 +1104,7 @@ def phase_i(torch, ops, tiers, r_results):
     recall = float(np.mean([len(set(got[i]) & set(want[i])) / 4
                             for i in range(len(qr))]))
     q32 = torch.from_numpy(qr[:32]).to(cuda)
-    cent, cmask, cidmap = ivf._plane
+    cent, cmask, cidmap = ivf._planes[0]
     scores, cids = ops.ivf_route_batch_padded(cent, q32, cmask, ivf.probes)
 
     def read():
@@ -1103,6 +1136,7 @@ def phase_i(torch, ops, tiers, r_results):
         log("I2: the IVF read is NOT faster than the exact scan")
     results["I2_ivf"] = dict(recall_at_4=recall, ivf_ms=ivf_ms,
                              exact_ms=exact_ms, device_ms=dev_ms)
+    results["I2_served"] = served
     return counts, results
 
 
@@ -2264,6 +2298,327 @@ def phase_f5(torch, ops, system):
 
 
 # ---------------------------------------------------------------------------
+# Phase M: the sharded guide store, logical shards on the one card
+# ---------------------------------------------------------------------------
+
+
+def same_reads(tag, a, b):
+    """Two lists of store reads equal bit for bit: the sims' bits and the
+    packed meta."""
+    import numpy as np
+    for i, (x, y) in enumerate(zip(a, b, strict=True)):
+        x, y = x.device_get(), y.device_get()
+        if not (np.array_equal(np.atleast_1d(x.sim).view(np.int32),
+                               np.atleast_1d(y.sim).view(np.int32))
+                and np.array_equal(x.meta, y.meta)):
+            raise AssertionError(f"{tag}: read {i} differs")
+
+
+def store_reads(store, qs, ks=(1, 4), top1=True):
+    """Every exact read of a store in both views: ``query`` (qs[0]) and
+    ``query_batch`` (unless not ``top1``), and ``query_topk``/
+    ``query_topk_batch`` at each k."""
+    from repro_torch.core import memory as mem
+    out = []
+    for g in (False, True):
+        if top1:
+            out += [mem.query(store, qs[0], guides_only=g),
+                    mem.query_batch(store, qs, guides_only=g)]
+        for k in ks:
+            out += [mem.query_topk(store, qs[0], k, guides_only=g),
+                    mem.query_topk_batch(store, qs, k, guides_only=g)]
+    return out
+
+
+def plain_topk_reads(store, qs, k):
+    """``store_reads(store, qs, (k,), top1=False)`` computed by the top-k
+    kernel's plain version on the store's device: the reference where the
+    kernel refuses the store."""
+    from repro_torch.core import memory as mem
+    from repro_torch.kernels import memory_topk as mt
+    out = []
+    for g in (False, True):
+        req = mem.required_bits(g)
+        for sim, idx in (
+                mt.memory_topk_padded_plain(store.emb, qs[0], store.mask, k,
+                                            req),
+                mt.memory_topk_batch_padded_plain(store.emb, qs, store.mask,
+                                                  k, req)):
+            out.append(mem.TopKResult(sim=sim, meta=mem.pack_meta(store,
+                                                                  idx)))
+    return out
+
+
+def m2_commits(torch, C, G, dev):
+    """M2's commits, made on ``dev`` from a seeded generator: C unit rows
+    of 384 lanes in commits of M2_COMMIT, half with a guide; slot C - 7
+    repeats slot 5, a tie across shards."""
+    gen = torch.Generator(device=dev)
+    first = None
+    for i in range(0, C, M2_COMMIT):
+        n = min(M2_COMMIT, C - i)
+        gen.manual_seed(SEEDS["store"] * 100_003 + i)
+        x = torch.randn((n, 384), generator=gen, device=dev)
+        x /= x.norm(dim=1, keepdim=True)
+        if first is None:
+            first = x[5].clone()
+        if i + n == C:
+            x[n - 7] = first
+        yield (x, torch.zeros((n, G), dtype=torch.int32, device=dev),
+               torch.rand(n, generator=gen, device=dev) < 0.5,
+               torch.zeros(n, dtype=torch.bool, device=dev),
+               torch.arange(i, i + n, dtype=torch.int32, device=dev))
+
+
+def phase_m(torch, ops, tiers, r_results, i_results):
+    """M1-M4 (see the module docstring). Returns the launch counts of the
+    phase's main path (the timed reads' launches taken out) and the
+    measured times."""
+    import numpy as np
+
+    from repro_torch.configs import rar_system
+    from repro_torch.core import memory as mem
+    from repro_torch.core.fm import FMTier
+    from repro_torch.core.memory_sharded import ShardedMemory
+    from repro_torch.serving.fabric import ServingFabric
+
+    cuda = torch.device(DEV)
+    vocab, prompts, greqs, embs = workload()
+    mb, n = MICROBATCHES[0], PASSES * POOL
+    ref = r_results[f"R1_mb{mb}"]
+    results, timing = {}, {}
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+
+    def timed(fn, tag):
+        """CUDA-event and device time of one call of ``fn``; its launches
+        are measurements, kept out of the phase's counts."""
+        before = ops.launch_counts()
+        out = (time_ms(torch, fn), device_ms(torch, fn, tag)[0])
+        for k, v in ops.launch_counts().items():
+            timing[k] = timing.get(k, 0) + v - before[k]
+        return out
+
+    def show(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+
+    # M1: R1 on 2 and 4 shards equals R1; async at flush-every 4 on 4
+    cfg = rar_system.make_rar_config()
+    C = cfg.memory.capacity
+    c = serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab)
+    log(f"M1 R1 again on the single-device store (warm): {n / c[2]:.1f} "
+        f"req/s")
+    for S in M1_SHARDS:
+        store = ShardedMemory(cfg.memory, shards=S, device=cuda)
+        c = serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab,
+                      memory=store)
+        if c[0].memory is not store:
+            raise AssertionError(f"M1 S={S}: the controller left the store")
+        same_run(f"M1 S={S}", c, ref["ctrl"], ref["outcomes"])
+        strong = sum(o.strong_calls for o in c[1])
+        if strong != JAX_STRONG_CALLS:
+            raise AssertionError(f"M1 S={S}: {strong} strong calls")
+        log(f"M1 {S} shards of {C // S} rows: Outcome streams, FM engine "
+            f"stats, store (to_single_device) and counters == R1's card run"
+            f"; strong calls {strong} per {n}; {n / c[2]:.1f} req/s")
+    S = M1_SHARDS[-1]
+    store = ShardedMemory(cfg.memory, shards=S, device=cuda)
+    seqs = []
+
+    def setup(ctrl):
+        traced_runner(ctrl, seqs)
+        ctrl.shadow.drain_delay = A2_DELAY
+    before = ops.stream_launches()
+    acfg = rar_system.make_rar_config(shadow_mode="async",
+                                      shadow_flush_every=A2_FLUSH)
+    c = serve_rar(cuda, tiers, None, mb, prompts, greqs, embs, vocab,
+                  cfg=acfg, memory=store, setup=setup)
+    c[0].close_shadow(timeout=WAIT_S)
+    queue_invariants(f"M1 async S={S}", c, seqs)
+    single = store.to_single_device()
+    valid = int(single.valid.sum())
+    if valid != min(store.ptr, C):
+        raise AssertionError(f"M1 async: {valid} valid rows, ptr "
+                             f"{store.ptr}")
+    qs = torch.from_numpy(embs).to(cuda)
+    same_reads("M1 async: sharded against to_single_device",
+               store_reads(store, qs), store_reads(single, qs))
+    streams = {st for (k, st), v in ops.stream_launches().items()
+               if k == "memory_topk" and v > before.get((k, st), 0)}
+    if len(streams) < 2:
+        raise AssertionError(f"M1 async: the store read ran on "
+                             f"{len(streams)} CUDA stream(s)")
+    log(f"M1 async flush-every {A2_FLUSH} drain_delay {A2_DELAY}s on {S} "
+        f"shards: invariants hold ({len(seqs)} items drained once each in "
+        f"seq order, none pending, entries_applied == ptr == {store.ptr}); "
+        f"to_single_device holds {valid} valid rows == min(ptr, C); every "
+        f"read (query, query_batch B={len(qs)}, top-k k=1/4, both views) "
+        f"== the same read of to_single_device bit for bit; memory_topk on "
+        f"{len(streams)} CUDA streams; strong calls "
+        f"{sum(o.strong_calls for o in c[1])}; {n / c[2]:.1f} req/s")
+    del store, single, c
+
+    # M2: the exact reads at E = 384 over growing stores, each S beside
+    # the single-device store that took the same commits
+    G = cfg.memory.guide_len
+    for C in M2_CAPACITIES:
+        mcfg = mem.MemoryConfig(capacity=C, embed_dim=384, guide_len=G)
+        topk4 = M2_TOPK4.get(C, (0,) + M2_SHARDS)
+        single = mem.init_memory(mcfg, device=cuda)
+        for commit in m2_commits(torch, C, G, cuda):
+            mem.add_batch(single, *commit)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(SEEDS["store"] + C)
+        qs = torch.randn((M2_B, 384), generator=gen, device=cuda)
+        qs /= qs.norm(dim=1, keepdim=True)
+        qs[0] = single.emb[5, :384]          # a row stored twice
+        want = store_reads(single, qs, ks=(1,))
+        # k = 4 on the kernel where it takes the whole store, else its
+        # plain version on the card
+        want4 = (store_reads(single, qs, ks=(4,), top1=False) if 0 in topk4
+                 else plain_topk_reads(single, qs, 4))
+        line = []
+        if C == M2_CAPACITIES[0]:
+            host = mem.init_memory(mcfg, device="cpu")
+            for commit in m2_commits(torch, C, G, cuda):
+                mem.add_batch(host, *(t.cpu() for t in commit))
+            same_reads(f"M2 C={C}: card against the CPU's plain reads",
+                       want + want4, store_reads(host, qs.cpu(), ks=(1,))
+                       + store_reads(host, qs.cpu(), ks=(4,), top1=False))
+            line.append("single-device card == CPU plain")
+            del host
+        Ep = single.emb.shape[1]
+        b = (C * Ep * 4 + C * 4 + qs.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        rows = {"single": (timed(lambda: mem.query_batch(single, qs),
+                                 f"m2_{C}_single_top1"),
+                           timed(lambda: mem.query_topk_batch(single, qs, 4),
+                                 f"m2_{C}_single_top4") if 0 in topk4
+                           else None)}
+        for S in M2_SHARDS:
+            sh = ShardedMemory(mcfg, shards=S, device=cuda)
+            for commit in m2_commits(torch, C, G, cuda):
+                mem.add_batch(sh, *commit)
+            same_reads(f"M2 C={C} S={S}", store_reads(sh, qs, ks=(1,)),
+                       want)
+            if S in topk4:
+                same_reads(f"M2 C={C} S={S} k=4",
+                           store_reads(sh, qs, ks=(4,), top1=False), want4)
+            rows[f"S={S}"] = (
+                timed(lambda: mem.query_batch(sh, qs), f"m2_{C}_s{S}_top1"),
+                timed(lambda: mem.query_topk_batch(sh, qs, 4),
+                      f"m2_{C}_s{S}_top4") if S in topk4 else None)
+            del sh
+            torch.cuda.empty_cache()
+        del single
+        torch.cuda.empty_cache()
+        timing_line = "; ".join(
+            f"{k}: top-1 {show(t1[0])} ({show(t1[1])}), top-4 "
+            + (f"{show(t4[0])} ({show(t4[1])})" if t4 else
+               "refused by the kernel") for k, (t1, t4) in rows.items())
+        log(f"M2 C={C} x 384 (commits of {M2_COMMIT}), S in {M2_SHARDS}: "
+            f"every read (query, query_batch B={M2_B}, top-k k=1, both "
+            f"views) == the single-device store's bit for bit; top-k k=4 "
+            f"== the single-device "
+            f"{'kernel' if 0 in topk4 else 'plain version on the card'} at "
+            f"S in {tuple(x for x in topk4 if x)}"
+            f"{'; ' + ', '.join(line) if line else ''}. ms a read, CUDA "
+            f"events (device): {timing_line}; bound {b:.4f} ms (the rows "
+            f"and mask at 3.35 TB/s)")
+        results[f"M2_C{C}"] = dict(bound_ms=b, **{
+            k: dict(top1_ms=t1[0], top1_device_ms=t1[1],
+                    top4_ms=t4[0] if t4 else None,
+                    top4_device_ms=t4[1] if t4 else None)
+            for k, (t1, t4) in rows.items()})
+
+    # M3: I2's setting on a 4-shard backing, over the same commits as I2
+    C, clusters, probes = IVF_STORE
+    icfg, full_store, rng, protos, rows_ = i2_store(torch)
+    src = full_store(cuda)
+    sh = ShardedMemory(icfg.memory, shards=M3_SHARDS, device=cuda)
+    mem.add_batch(sh, src.emb[:C, :384], src.guide, src.has_guide, src.hard,
+                  src.added_at)
+    del src
+    mb3 = MICROBATCHES[-1]
+    i2 = i_results[f"I2_mb{mb3}"]
+    served = i_results["I2_served"]
+    c = serve_rar(cuda, tiers, None, mb3, prompts, greqs, embs, vocab,
+                  cfg=icfg, memory=sh)
+    ivf = c[0].memory
+    if ivf.store is not sh:
+        raise AssertionError("M3: the IVF plane is not over the sharded store")
+    if [dataclasses.astuple(o) for o in c[1]] != i2["outcomes"]:
+        raise AssertionError("M3: Outcome stream differs from I2's")
+    same_engines("M3", c[0], i2["ctrl"])
+    same_store(sh, served["card"].store)
+    for f in ("_assign", "_members", "_cent", "_ccount"):
+        if not np.array_equal(getattr(ivf, f), getattr(served["card"], f)):
+            raise AssertionError(f"M3: IVF index {f} differs from I2's")
+    qs = near(rng, protos, 32)
+    qs[0] = rows_[C - 1]
+    qs[1] = embs[0]
+
+    def ivf_reads(plane):
+        return [plane.query_topk_batch(qs, 4)] + [
+            plane.query_topk(q, 4) for q in qs[:4]]
+    got = ivf_reads(ivf)
+    same_reads("M3: against I2's card IVF reads", got,
+               ivf_reads(served["card"]))
+    same_reads("M3: against I2's CPU IVF reads", got, ivf_reads(served["cpu"]))
+    qr = near(rng, protos, 256)
+    top = ivf.query_topk_batch(qr, 4).device_get().index
+    exact = ivf.exact_query_topk_batch(qr, 4).device_get().index
+    recall = float(np.mean([len(set(top[i]) & set(exact[i])) / 4
+                            for i in range(len(qr))]))
+    if recall != i_results["I2_ivf"]["recall_at_4"]:
+        raise AssertionError(f"M3: recall@4 {recall} against I2's "
+                             f"{i_results['I2_ivf']['recall_at_4']}")
+    q32 = torch.from_numpy(qr[:32]).to(cuda)
+    t_sh = timed(lambda: ivf.query_topk_batch(q32, 4), "m3_sharded_read")
+    t_i2 = timed(lambda: served["card"].query_topk_batch(q32, 4), "m3_i2_read")
+    log(f"M3 I2 on {M3_SHARDS} shards ({clusters} clusters, {probes} "
+        f"probes, the route merged from {M3_SHARDS} planes of "
+        f"{clusters // M3_SHARDS}): I2's Outcome stream at microbatch {mb3} "
+        f"(strong calls {sum(o.strong_calls for o in c[1])}), engine stats, "
+        f"store and IVF index == I2's; query_topk_batch B=32 k=4 and 4 "
+        f"single reads == I2's card and CPU reads bit for bit; recall@4 "
+        f"{recall:.4f} == I2's; read B=32 k=4, ms (device ms): sharded "
+        f"{show(t_sh[0])} ({show(t_sh[1])}), I2 {show(t_i2[0])} "
+        f"({show(t_i2[1])})")
+    results["M3"] = dict(recall_at_4=recall, sharded_ms=t_sh[0],
+                         sharded_device_ms=t_sh[1], i2_ms=t_i2[0],
+                         i2_device_ms=t_i2[1])
+    del sh, ivf, c
+
+    # M4: two thread replicas, serialized, over one 4-shard store
+    weak = FMTier.create("weak", rar_system.WEAK, to_device(tiers[0], cuda),
+                         vocab)
+    strong = FMTier.create("strong", rar_system.STRONG,
+                           to_device(tiers[1], cuda), vocab)
+    store = ShardedMemory(cfg.memory, shards=4, device=cuda)
+    fab = ServingFabric(weak, strong, None, lambda e, k: False, cfg,
+                        replicas=2, memory=store, device=cuda)
+    outs, _ = f_serve(torch, fab, f_stream(mb), "serial")
+    if not all(r.memory is store for r in fab.replicas):
+        raise AssertionError("M4: a replica's view is not the one store")
+    f_same_r1("M4 2 replicas serialized on 4 shards", fab, outs, ref)
+    fab.close_shadow()
+    log(f"M4 ServingFabric(replicas=2) over one 4-shard store, one ticket at "
+        f"a time: Outcome streams, FM calls and tokens, store, clock and "
+        f"counters == R1's card run; {JAX_STRONG_CALLS} strong calls")
+    del fab, store
+    torch.cuda.empty_cache()
+
+    counts = {k: v - timing.get(k, 0) for k, v in ops.launch_counts().items()}
+    log(f"M launches on the card (main path; the timed reads' {timing} "
+        f"taken out): {counts}; Phase M took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for k in ops.KERNELS:
+        if counts[k] == 0:
+            raise AssertionError(f"Phase M never launched {k}")
+    return counts, results
+
+
+# ---------------------------------------------------------------------------
 # Trace: where the card's time goes (run on its own, not by main())
 # ---------------------------------------------------------------------------
 
@@ -2502,9 +2857,11 @@ def main() -> int:
 
     rows = phase_k(torch)
     r_counts, r_results, tiers = phase_r(torch, ops)
-    i_counts, _ = phase_i(torch, ops, tiers, r_results)
+    i_counts, i_results = phase_i(torch, ops, tiers, r_results)
     a_counts, _ = phase_a(torch, ops, tiers, r_results)
     f_counts, _ = phase_f(torch, ops, tiers, r_results)
+    m_counts, _ = phase_m(torch, ops, tiers, r_results, i_results)
+    del i_results
     l_counts, _ = phase_l(torch, ops)
     s_counts, s_results = phase_s(torch, ops)
     a4_counts, _ = phase_a4(torch, ops, s_results["system"])
@@ -2519,8 +2876,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(c.get(name, 0)
                             for c in (r_counts, i_counts, a_counts, f_counts,
-                                      l_counts, s_counts, a4_counts,
-                                      f5_counts)),
+                                      m_counts, l_counts, s_counts,
+                                      a4_counts, f5_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -1,5 +1,6 @@
 """IVF two-level retrieval plane, the counterpart of
-``src/repro/core/memory_ivf.py`` over the single-device store.
+``src/repro/core/memory_ivf.py``, over the single-device store or the
+sharded one.
 
 The exact store scan (:mod:`repro_torch.core.memory`) touches all C rows
 per query. :class:`IVFMemory` keeps an inverted-file index over the same
@@ -30,21 +31,29 @@ device mirrors refresh lazily before the next read. With ``offload=True``
 a host mirror of the rows serves the clusters not routed to within the
 last ``cold_after`` queries (single-query reads).
 
-Not ported: the sharded backing store (its per-shard centroid subsets);
-a store other than a :class:`~repro_torch.core.memory.MemoryState` is
-refused.
+Over a :class:`~repro_torch.core.memory_sharded.ShardedMemory` backing,
+cluster c lives with shard ``c % S``: the route runs once a shard over that
+shard's centroid subset (S route launches) and the S partial routes merge
+under the same (score desc, cluster asc) order
+(:func:`~repro_torch.kernels.memory_topk._topk_select`), which is the
+route over the global plane; the reads then take each slot's physical row
+in the sharded layout. A backing store of any other type is refused.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
 from repro_torch.core import memory as mem
+from repro_torch.core.memory_sharded import ShardedMemory
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.memory_ivf import gather_candidates, global_cids
-from repro_torch.kernels.memory_topk import MASK_VALID, _round_up, padded_rows
+from repro_torch.kernels.memory_ivf import (gather_candidates, global_cids,
+                                            phys_rows)
+from repro_torch.kernels.memory_topk import (MASK_VALID, _round_up,
+                                             _topk_select, padded_rows)
 
 _SENTINEL = 2 ** 30
 
@@ -75,36 +84,88 @@ def _scan_sorted(store, slots_s, rows, bits, q, k: int, required: int
         gidx, gmask[li, 0], store.hard, store.added_at, store.guide))
 
 
-def _ivf_topk(plane, members, assign, store, q, k: int, n_probe: int,
+def _geometry(store) -> tuple[int, int]:
+    """(Cs, Csp) of a sharded store; (0, 0), the identity, otherwise."""
+    if isinstance(store, ShardedMemory):
+        return store.cs, store.csp
+    return 0, 0
+
+
+def _route_merged(planes, q, n_probe: int):
+    """Level 1 of a single-query read: the route of each centroid plane
+    (one a shard; one plane when unsharded), its rows mapped to cluster
+    ids, and the partial routes merged under the (score desc, cluster asc)
+    order. Padding rows map to the 2**30 sentinel."""
+    parts = []
+    for cent, cmask, cidmap in planes:
+        s, c = kops.ivf_route_padded(cent, q, cmask, n_probe, MASK_VALID)
+        parts.append((s, global_cids(c, cidmap)))
+    if len(parts) == 1:
+        return parts[0]
+    return _topk_select(torch.cat([s for s, _ in parts]),
+                        torch.cat([c for _, c in parts]), n_probe)
+
+
+def _route_merged_batch(planes, qs, n_probe: int):
+    """:func:`_route_merged` for (B, E) queries: (B, n_probe) scores and
+    cluster ids."""
+    parts = [kops.ivf_route_batch_padded(cent, qs, cmask, n_probe,
+                                         MASK_VALID) + (cidmap,)
+             for cent, cmask, cidmap in planes]
+    s, c = _topk_select(
+        torch.cat([s.T for s, _, _ in parts]),
+        torch.cat([global_cids(c, m).T for _, c, m in parts]), n_probe)
+    return s.T.contiguous(), c.T.contiguous()
+
+
+def _ivf_topk(planes, members, assign, store, q, k: int, n_probe: int,
               required: int) -> mem.TopKResult:
     """Single-query read: route, gather, sort by slot (stable: the order
     of the dropped candidates decides the meta of -2.0 slots), scan."""
-    cent, cmask, cidmap = plane
     C = store.capacity
-    scores, cids = kops.ivf_route_padded(cent, q, cmask, n_probe,
-                                         MASK_VALID)
-    slots, ok = gather_candidates(members, assign, scores,
-                                  global_cids(cids, cidmap))
+    scores, cids = _route_merged(planes, q, n_probe)
+    slots, ok = gather_candidates(members, assign, scores, cids)
     order = torch.argsort(torch.where(ok, slots, _SENTINEL), stable=True)
     slots_s, ok_s = slots[order], ok[order]
-    phys = slots_s.long().clamp(0, C - 1)
+    phys = phys_rows(slots_s.long().clamp(0, C - 1), *_geometry(store))
     rows = torch.where(ok_s[:, None], store.emb[phys], 0.0)
     bits = torch.where(ok_s, store.mask[phys, 0], 0)
     return _scan_sorted(store, slots_s, rows, bits, q, k, required)
 
 
-def _ivf_topk_batch(plane, members, assign, store, qs, k: int, n_probe: int,
-                    required: int) -> mem.TopKResult:
-    """Multi-query read: the route, then the candidate read and its
+def _scan_batch(scores, cids, cidmap, members, assign, store, qs, k: int,
+                required: int) -> mem.TopKResult:
+    """Level 2 of a multi-query read: the candidate read and its
     packed-meta epilogue (one ``ivf_scan`` launch on the card; on the CPU
     its plain version, whose memory is O(B * L * Ep), so the caller chunks
-    B there)."""
+    B there), at the store's physical rows."""
+    cs, csp = _geometry(store)
+    return mem.TopKResult(*kops.ivf_scan_batch(
+        scores, cids, cidmap, members, assign, store.emb, store.mask,
+        store.hard, store.added_at, store.guide, qs, k, required,
+        cs=cs, csp=csp))
+
+
+def _ivf_topk_batch(plane, members, assign, store, qs, k: int, n_probe: int,
+                    required: int) -> mem.TopKResult:
+    """Multi-query read over one centroid plane: the route, then
+    :func:`_scan_batch`."""
     cent, cmask, cidmap = plane
     scores, cids = kops.ivf_route_batch_padded(cent, qs, cmask, n_probe,
                                                MASK_VALID)
-    return mem.TopKResult(*kops.ivf_scan_batch(
-        scores, cids, cidmap, members, assign, store.emb, store.mask,
-        store.hard, store.added_at, store.guide, qs, k, required))
+    return _scan_batch(scores, cids, cidmap, members, assign, store, qs, k,
+                       required)
+
+
+def _ivf_topk_batch_merged(planes, ident, members, assign, store, qs,
+                           k: int, n_probe: int,
+                           required: int) -> mem.TopKResult:
+    """Multi-query read over the shards' planes: S routes merged into
+    cluster ids (:func:`_route_merged_batch`), which the candidate read
+    takes through the identity map ``ident``."""
+    scores, cids = _route_merged_batch(planes, qs, n_probe)
+    return _scan_batch(scores, cids, ident, members, assign, store, qs, k,
+                       required)
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +174,8 @@ def _ivf_topk_batch(plane, members, assign, store, qs, k: int, n_probe: int,
 
 
 class IVFMemory:
-    """IVF wrapper around a :class:`~repro_torch.core.memory.MemoryState`,
+    """IVF wrapper around a :class:`~repro_torch.core.memory.MemoryState`
+    or a :class:`~repro_torch.core.memory_sharded.ShardedMemory`,
     presenting the store method API, so the ``core.memory`` functions, the
     commit buffer and the controllers work against it unchanged. Reads go
     through the two-level path; writes update the backing store in place
@@ -125,11 +187,9 @@ class IVFMemory:
                  cold_after: int = 1024):
         if isinstance(store, IVFMemory):
             raise TypeError("backing store is already IVF-wrapped")
-        if not isinstance(store, mem.MemoryState):
-            raise TypeError(f"IVFMemory wraps a single-device MemoryState, "
-                            f"got {type(store).__name__}: the sharded "
-                            f"backing store is not ported (ROADMAP queue 1 "
-                            f"item 10)")
+        if not isinstance(store, (mem.MemoryState, ShardedMemory)):
+            raise TypeError(f"IVFMemory wraps a MemoryState or a "
+                            f"ShardedMemory, got {type(store).__name__}")
         C = store.capacity
         if not 2 <= clusters <= C:
             raise ValueError(f"retrieval_clusters={clusters} must be in "
@@ -140,6 +200,16 @@ class IVFMemory:
         self.store = store
         self.clusters = int(clusters)
         self.probes = int(probes)
+        self._sharded = isinstance(store, ShardedMemory)
+        if self._sharded:
+            S = store.shards
+            if clusters % S:
+                raise ValueError(f"clusters={clusters} not divisible by "
+                                 f"{S} shards (cluster c lives with "
+                                 f"shard c % S)")
+            if probes > clusters // S:
+                raise ValueError(f"probes={probes} exceeds the "
+                                 f"{clusters // S} clusters per shard")
         self._ep = store.emb.shape[1]
         if bucket_cap is None:
             # ~4x the average cluster occupancy of a full ring: skewed
@@ -170,7 +240,8 @@ class IVFMemory:
         self.device_fetch_rows = 0
         self._qcount = 0
         self._dirty = True
-        self._plane = None
+        self._planes = None
+        self._ident = None
         self._members_dev = None
         self._assign_dev = None
         if self._ptr_host:
@@ -259,8 +330,12 @@ class IVFMemory:
         time."""
         C, P, M = self.capacity, self.clusters, self.bucket_cap
         st = self.store
-        emb = st.emb[:C].cpu().numpy().astype(np.float32)
-        bits = st.mask[:C, 0].cpu().numpy().astype(np.int32)
+        if self._sharded:
+            emb, bits = st.logical_rows()
+        else:
+            emb, bits = st.emb[:C], st.mask[:C, 0]
+        emb = emb.cpu().numpy().astype(np.float32)
+        bits = bits.cpu().numpy().astype(np.int32)
         if self.offload:
             self._emb_host[:] = emb
             self._bits_host[:] = bits
@@ -309,7 +384,8 @@ class IVFMemory:
 
     def _refresh(self) -> None:
         """Lazy upload of the device mirrors: the centroid plane in the
-        padded kernel layout and the member/assign tables. O(P * Ep +
+        padded kernel layout (one a shard, of the clusters ``c % S == s``,
+        over a sharded store) and the member/assign tables. O(P * Ep +
         P * M) once per index mutation, off the per-query path. It runs
         under the store lock on whichever thread reads first (the async
         drainer's stream too), so it ends as every store write does:
@@ -317,17 +393,28 @@ class IVFMemory:
         if not self._dirty:
             return
         P, Ep, dev = self.clusters, self._ep, self.device
-        pp = padded_rows(P)
-        cent = np.zeros((pp, Ep), np.float32)
-        cent[:P] = self._cent
-        cm = np.zeros((pp, 1), np.int32)
-        cm[:P, 0] = np.where(self._ccount > 0, MASK_VALID, 0)
-        self._plane = (torch.from_numpy(cent).to(dev),
-                       torch.from_numpy(cm).to(dev),
-                       torch.arange(P, dtype=torch.int32, device=dev))
+        live = self._ccount > 0
+        S = self.store.shards if self._sharded else 1
+        planes = []
+        for s in range(S):
+            cid = np.arange(s, P, S, dtype=np.int32)
+            ps = len(cid)
+            pp = padded_rows(ps)
+            cent = np.zeros((pp, Ep), np.float32)
+            cent[:ps] = self._cent[cid]
+            cm = np.zeros((pp, 1), np.int32)
+            cm[:ps, 0] = np.where(live[cid], MASK_VALID, 0)
+            planes.append((torch.from_numpy(cent).to(dev),
+                           torch.from_numpy(cm).to(dev),
+                           torch.from_numpy(cid).to(dev)))
+        self._planes = tuple(planes)
+        if S > 1 and self._ident is None:
+            self._ident = torch.arange(P, dtype=torch.int32, device=dev)
+            mem.publish(self._ident)
         self._members_dev = torch.from_numpy(self._members).to(dev)
         self._assign_dev = torch.from_numpy(self._assign).to(dev)
-        mem.publish(*self._plane, self._members_dev, self._assign_dev)
+        mem.publish(*(t for pl in self._planes for t in pl),
+                    self._members_dev, self._assign_dev)
         mem.settle(self)
         self._dirty = False
 
@@ -351,7 +438,7 @@ class IVFMemory:
         if self.offload:
             return self._query_topk_tiered(emb, k, guides_only)
         self._qcount += 1
-        return _ivf_topk(self._plane, self._members_dev, self._assign_dev,
+        return _ivf_topk(self._planes, self._members_dev, self._assign_dev,
                          self.store, self._queries(emb), k, self.probes,
                          mem.required_bits(guides_only))
 
@@ -366,10 +453,14 @@ class IVFMemory:
         self._qcount += B
         if self.device.type == "cuda":
             _chunk = B
-        outs = [_ivf_topk_batch(self._plane, self._members_dev,
-                                self._assign_dev, self.store,
-                                qs[i:i + _chunk], k, self.probes,
-                                mem.required_bits(guides_only))
+        if len(self._planes) == 1:
+            read = functools.partial(_ivf_topk_batch, self._planes[0])
+        else:
+            read = functools.partial(_ivf_topk_batch_merged, self._planes,
+                                     self._ident)
+        outs = [read(self._members_dev, self._assign_dev, self.store,
+                     qs[i:i + _chunk], k, self.probes,
+                     mem.required_bits(guides_only))
                 for i in range(0, B, _chunk)]
         if len(outs) == 1:
             return outs[0]
@@ -392,11 +483,9 @@ class IVFMemory:
         cold candidates from the host mirror and the hot ones on the
         device."""
         q = self._queries(emb)
-        cent, cmask, cidmap = self._plane
-        scores, cids = kops.ivf_route_padded(cent, q, cmask, self.probes,
-                                             MASK_VALID)
+        scores, cids = _route_merged(self._planes, q, self.probes)
         scores = scores.cpu().numpy()
-        cids = global_cids(cids, cidmap).cpu().numpy()
+        cids = cids.cpu().numpy()
         P, M, C = self.clusters, self.bucket_cap, self.capacity
         cids_c = np.clip(cids, 0, P - 1)
         live = scores > -2.0
@@ -424,7 +513,7 @@ class IVFMemory:
         st, dev = self.store, self.device
         slots_t = torch.from_numpy(slots_s.astype(np.int32)).to(dev)
         hot_t = torch.from_numpy(hot_s).to(dev)
-        phys = slots_t.long().clamp(0, C - 1)
+        phys = phys_rows(slots_t.long().clamp(0, C - 1), *_geometry(st))
         rows = torch.where(hot_t[:, None], st.emb[phys], 0.0) + \
             torch.from_numpy(host_rows.astype(np.float32)).to(dev)
         bits = torch.where(hot_t, st.mask[phys, 0], 0) + \
@@ -478,6 +567,9 @@ class IVFMemory:
         grow_memory`) and re-bucket the clusters against the re-laid-out
         slots. Returns ``(self, remap)``, the :meth:`CommitStream.grow`
         contract."""
+        if self._sharded:
+            raise NotImplementedError(
+                "grow over a sharded backing store is not supported")
         self.store, remap = mem.grow_memory(self.store, new_capacity)
         self._ptr_host = self.store.ptr
         C = self.store.capacity

@@ -282,6 +282,9 @@ class RAR:
                 cfg.journal_path, cfg.memory,
                 snapshot_every=cfg.snapshot_every, fault_plan=fault_plan,
                 device=device)
+        # ``memory`` may inject a pre-built store (a ShardedMemory, an
+        # IVF-wrapped one); every store access goes through the
+        # ``core.memory`` dispatchers
         if memory is None:
             memory = recovered if recovered is not None \
                 else mem.init_memory(cfg.memory, device=device)

@@ -55,8 +55,8 @@ _SIGNATURES = {
     "ivf_route_batch_padded": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                                _I, _P, _P, _P),
     "ivf_scan_batch": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P,
-                       _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P,
-                       _P, _P),
+                       _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                       _I, _P, _P, _P),
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P),
     "decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -18,6 +18,11 @@
 // hard, added_at, guide...] is written as memory.pack_meta_parts writes
 // it, the index being the key clamped into the store's C slots.
 //
+// The store may be sharded (repro_torch/core/memory_sharded.py): with
+// cs > 0, slot g's row and mask bits sit at physical row
+// (g / cs) * csp + g % cs (the JAX package's _phys_rows), while assign,
+// hard, added_at and guide stay indexed by slot; cs = 0 reads row g.
+//
 // Bound on the H100: the rows it reads, as many as the probed buckets
 // keep. At 1024 clusters, 4 probes and buckets of 256 (Phase I2), a query
 // has 1024 candidate slots and ~260 kept rows: ~0.4 MB of rows a query,
@@ -69,6 +74,7 @@ struct ScanIvfArgs {
   const int* guide;      // (C, G)
   const float* qs;       // (B, E): rows of E floats, E % 4 == 0, 16-byte aligned
   int ps, P, M, C, G, Ep, E, B, n_probe, k, required;
+  int cs, csp;           // sharded geometry; cs = 0: row = slot
   int L, tiles, len;     // candidates and tiles a query; entries a tile's list
   int smem_floats;
   u64* keys;             // k = 1: B keys, 0 between launches
@@ -85,6 +91,11 @@ struct ScanIvfArgs {
 constexpr int GROUP = 16;  // kept rows staged at a time
 inline size_t scan_floats(int Ep) {
   return (size_t)GROUP * row_stride(Ep) + Ep + (size_t)GROUP * (n_blocks(Ep) + 1) + 4 * TILE + 4;
+}
+
+// The store row of ring slot `slot` (in [0, C)).
+__device__ __forceinline__ int store_row(const ScanIvfArgs& a, int slot) {
+  return a.cs ? (slot / a.cs) * a.csp + slot % a.cs : slot;
 }
 
 __global__ void __launch_bounds__(NTHREADS) ivf_scan_kernel(const ScanIvfArgs a) {
@@ -113,8 +124,9 @@ __global__ void __launch_bounds__(NTHREADS) ivf_scan_kernel(const ScanIvfArgs a)
       const int cid = crow >= 0 && crow < a.ps ? __ldg(a.cidmap + crow) : KEY_SENTINEL;
       const int owner = min(max(cid, 0), a.P - 1);
       const int s = __ldg(a.members + (size_t)owner * a.M + m);
-      phys = min(max(s, 0), a.C - 1);
-      if (score > -2.0f && s >= 0 && __ldg(a.assign + phys) == owner) {
+      const int clamped = min(max(s, 0), a.C - 1);
+      phys = store_row(a, clamped);
+      if (score > -2.0f && s >= 0 && __ldg(a.assign + clamped) == owner) {
         slot = s;
         bits = __ldg(a.mask + phys);
       }
@@ -190,7 +202,8 @@ __global__ void __launch_bounds__(NTHREADS) ivf_scan_kernel(const ScanIvfArgs a)
     const int idx = min(id, a.C - 1);  // a dropped winner's 2^30 + j clamps to C - 1
     int v;
     if (f == 0) v = idx;
-    else if (f == 1) v = id < KEY_SENTINEL && (__ldcg(a.mask + idx) & MASK_GUIDE_BIT) ? 1 : 0;
+    else if (f == 1)
+      v = id < KEY_SENTINEL && (__ldcg(a.mask + store_row(a, idx)) & MASK_GUIDE_BIT) ? 1 : 0;
     else if (f == 2) v = a.hard[idx];
     else if (f == 3) v = a.added_at[idx];
     else v = a.guide[(size_t)idx * a.G + f - 4];
@@ -204,10 +217,12 @@ __global__ void __launch_bounds__(NTHREADS) ivf_scan_kernel(const ScanIvfArgs a)
 
 // scores/cids (B, n_probe) f32/int32 from the route; cidmap (ps,), members
 // (P, M), assign (C,) int32; emb (Cp, Ep) f32 with Ep % 4 == 0, mask (Cp,)
-// int32; hard (C,) bool, added_at (C,) int32, guide (C, G) int32; qs (B, E)
-// f32 with E % 4 == 0 and E <= Ep; emb and qs 16-byte aligned. state holds
-// 2 B 64-bit words, zero before the first launch (B keys, then B tickets);
-// every launch leaves them zero. For k >= 2, lists holds `capacity` 64-bit
+// int32, slot g at row g, or at (g / cs) * csp + g % cs when cs > 0 (then
+// C % cs == 0, cs <= csp and (C / cs) * csp <= Cp); hard (C,) bool,
+// added_at (C,) int32, guide (C, G) int32; qs (B, E) f32 with E % 4 == 0
+// and E <= Ep; emb and qs 16-byte aligned. state holds 2 B 64-bit words,
+// zero before the first launch (B keys, then B tickets); every launch
+// leaves them zero. For k >= 2, lists holds `capacity` 64-bit
 // words, at least B * ceil(n_probe * M / 32) * min(k, 32). Outputs sims
 // (B, k) f32 and the winners' packed meta (B, k, 4 + G) int32.
 extern "C" int ivf_scan_batch(const float* scores, const int* cids, const int* cidmap, int ps,
@@ -215,14 +230,15 @@ extern "C" int ivf_scan_batch(const float* scores, const int* cids, const int* c
                               const float* emb, const int* mask, int Ep,
                               const unsigned char* hard, const int* added_at, const int* guide,
                               int G, const float* qs, int E, int B, int n_probe, int k,
-                              int required, u64* state, u64* lists, int capacity, float* out_s,
-                              int* out_meta, cudaStream_t stream) {
+                              int required, int cs, int csp, u64* state, u64* lists,
+                              int capacity, float* out_s, int* out_meta, cudaStream_t stream) {
   ScanIvfArgs a{};
   a.scores = scores; a.cids = cids; a.cidmap = cidmap; a.members = members;
   a.assign = assign; a.emb = emb; a.mask = mask; a.hard = hard; a.added_at = added_at;
   a.guide = guide; a.qs = qs;
   a.ps = ps; a.P = P; a.M = M; a.C = C; a.G = G; a.Ep = Ep; a.E = E; a.B = B;
   a.n_probe = n_probe; a.k = k; a.required = required;
+  a.cs = cs; a.csp = csp;
   a.L = n_probe * M;
   a.tiles = (a.L + TILE - 1) / TILE;
   a.len = min(k, TILE);
@@ -232,8 +248,9 @@ extern "C" int ivf_scan_batch(const float* scores, const int* cids, const int* c
   a.out_s = out_s; a.out_meta = out_meta;
   const uintptr_t aligned = reinterpret_cast<uintptr_t>(emb) | reinterpret_cast<uintptr_t>(qs);
   if (ps < 1 || P < 1 || M < 1 || C < 1 || G < 0 || B < 1 || n_probe < 1 || k < 1 ||
-      k > a.L || Ep < 4 || Ep % 4 || Ep > MAX_EP || E < 4 || E % 4 || E > Ep || aligned % 16 ||
-      state == nullptr || (long long)B * a.tiles > 0x7fffffffLL)
+      k > a.L || cs < 0 || (cs > 0 && (csp < cs || C % cs)) || Ep < 4 || Ep % 4 ||
+      Ep > MAX_EP || E < 4 || E % 4 || E > Ep || aligned % 16 || state == nullptr ||
+      (long long)B * a.tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (k > 1 && (lists == nullptr || (long long)B * a.tiles * a.len > capacity))
     return cudaErrorInvalidValue;

@@ -112,6 +112,14 @@ def global_cids(cids: torch.Tensor, cidmap: torch.Tensor) -> torch.Tensor:
                        _SENTINEL)
 
 
+def phys_rows(slots: torch.Tensor, cs: int, csp: int) -> torch.Tensor:
+    """Logical ring slots -> rows of the store's ``emb`` and ``mask``: the
+    slots themselves for a single-device store (``cs`` = 0); for a sharded
+    one (:mod:`repro_torch.core.memory_sharded`, Cs = ``cs`` slots in Csp =
+    ``csp`` rows a shard) (g // Cs)·Csp + g % Cs."""
+    return (slots // cs) * csp + slots % cs if cs else slots
+
+
 def gather_candidates(members, assign, scores, cids):
     """Expand routed clusters into a candidate slot list. Dead probes
     (score <= -2.0), empty bucket slots and stale members (``assign`` no
@@ -129,7 +137,7 @@ def gather_candidates(members, assign, scores, cids):
 
 
 def ivf_select_plain(scores, cids, cidmap, members, assign, emb, mask, qs,
-                     k: int, required: int):
+                     k: int, required: int, cs: int = 0, csp: int = 0):
     """The selection of :func:`ivf_scan_batch_plain`: (sims (B, k),
     keys (B, k), wbits (B, k)). Each query's top k over its n_probe x M
     candidates by (sim desc, key asc): a dropped candidate has sim -2.0 and
@@ -137,13 +145,15 @@ def ivf_select_plain(scores, cids, cidmap, members, assign, emb, mask, qs,
     key its slot, a kept one its dot (summed in the card's order) and its
     slot; wbits is a kept winner's mask bits. A round that lands on the
     dropped candidates gives (-2.0, 2**30) and bits 0 (the selection
-    rounds' sentinel, as in the JAX package). Memory is O(B * L * Ep); the
-    caller chunks B."""
+    rounds' sentinel, as in the JAX package). With ``cs`` > 0 the store is
+    sharded (:mod:`repro_torch.core.memory_sharded`): slot g's row and bits
+    sit at physical row (g // cs) * csp + g % cs; ``cs`` = 0 reads row g.
+    Memory is O(B * L * Ep); the caller chunks B."""
     C = assign.shape[0]
     slots, ok = gather_candidates(members, assign, scores,
                                   global_cids(cids, cidmap))
     L = slots.shape[1]
-    phys = slots.long().clamp(0, C - 1)
+    phys = phys_rows(slots.long().clamp(0, C - 1), cs, csp)
     rows = torch.where(ok[..., None], emb[phys], 0.0)        # (B, L, Ep)
     bits = torch.where(ok, mask[phys, 0], 0)                 # (B, L)
     qp = _pad_queries(qs, emb.shape[1])
@@ -162,23 +172,25 @@ def ivf_select_plain(scores, cids, cidmap, members, assign, emb, mask, qs,
 
 
 def ivf_scan_batch_plain(scores, cids, cidmap, members, assign, emb, mask,
-                         hard, added_at, guide, qs, k: int, required: int):
+                         hard, added_at, guide, qs, k: int, required: int,
+                         cs: int = 0, csp: int = 0):
     """The candidate read after the route and its epilogue: scores/cids
     (B, n_probe) from the route, cidmap (ps,), members (P, M), assign (C,),
     the store's emb (Cp, Ep), mask (Cp, 1), hard (C,), added_at (C,) and
     guide (C, G), qs (B, E) -> (sims (B, k), meta (B, k, 4 + G)): the
     selection of :func:`ivf_select_plain` and the winners' packed meta
     (:func:`~repro_torch.kernels.memory_topk.pack_meta_parts`, the key
-    clamped into the C slots as its index)."""
+    clamped into the C slots as its index). ``cs``/``csp``: the sharded
+    geometry of :func:`ivf_select_plain`."""
     top_s, top_r, wbits = ivf_select_plain(scores, cids, cidmap, members,
                                            assign, emb, mask, qs, k,
-                                           required)
+                                           required, cs, csp)
     return top_s, pack_meta_parts(top_r.clamp(0, assign.shape[0] - 1), wbits,
                                   hard, added_at, guide)
 
 
 def _check_scan(scores, cids, cidmap, members, assign, emb, mask, hard,
-                added_at, guide, qs, k):
+                added_at, guide, qs, k, cs, csp):
     tensors = (scores, cids, cidmap, members, assign, emb, mask, hard,
                added_at, guide, qs)
     if emb.device.type != "cuda" or any(t.device != emb.device
@@ -201,6 +213,10 @@ def _check_scan(scores, cids, cidmap, members, assign, emb, mask, hard,
                          f"{tuple(cids.shape)}, emb {tuple(emb.shape)}, "
                          f"mask {tuple(mask.shape)}, qs {tuple(qs.shape)}, "
                          f"assign {tuple(assign.shape)}")
+    if cs and not (0 < cs <= csp and C % cs == 0 and
+                   C // cs * csp <= emb.shape[0]):
+        raise ValueError(f"bad sharded geometry cs={cs}, csp={csp} for "
+                         f"{C} slots over {emb.shape[0]} store rows")
     L = n_probe * members.shape[1]
     if not 1 <= k <= L:
         raise ValueError(f"k={k} must be in [1, {L}], the candidates a "
@@ -208,14 +224,15 @@ def _check_scan(scores, cids, cidmap, members, assign, emb, mask, hard,
 
 
 def ivf_scan_batch_cuda(scores, cids, cidmap, members, assign, emb, mask,
-                        hard, added_at, guide, qs, k: int, required: int):
+                        hard, added_at, guide, qs, k: int, required: int,
+                        cs: int = 0, csp: int = 0):
     """Launch ``csrc/ivf_scan.cu`` on CUDA tensors (the arguments and
     results of :func:`ivf_scan_batch_plain`). One launch for the batch;
     the outputs are the only allocations (the workspaces are kept per
     stream and shape)."""
     global scan_launches
     _check_scan(scores, cids, cidmap, members, assign, emb, mask, hard,
-                added_at, guide, qs, k)
+                added_at, guide, qs, k, cs, csp)
     q = _store_queries(emb, qs, mask, "ivf_scan")
     scores, cids, cidmap, members, assign, hard, added_at, guide = (
         t.contiguous() for t in (scores, cids, cidmap, members, assign, hard,
@@ -235,7 +252,7 @@ def ivf_scan_batch_cuda(scores, cids, cidmap, members, assign, emb, mask,
         cidmap.shape[0], members.data_ptr(), P, M, assign.data_ptr(), C,
         emb.data_ptr(), mask.data_ptr(), emb.shape[1], hard.data_ptr(),
         added_at.data_ptr(), guide.data_ptr(), G, q.data_ptr(), q.shape[1], B,
-        n_probe, k, required, state.data_ptr(),
+        n_probe, k, required, cs, csp, state.data_ptr(),
         None if lists is None else lists.data_ptr(),
         0 if lists is None else lists.numel(), out_s.data_ptr(),
         out_meta.data_ptr(), stream)

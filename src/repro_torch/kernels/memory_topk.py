@@ -127,18 +127,17 @@ def _topk_select(sims: torch.Tensor, rows: torch.Tensor, k: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k over the leading axis by (sim desc, row asc): k rounds of max,
     lowest row among ``sims >= best``, consume to -3.0. IEEE compares, so
-    ±0.0 are equal and the row decides."""
+    ±0.0 are equal and the row decides. On the card every op is queued
+    with no host copy (the sharded and IVF merges run it there)."""
     out_s, out_r = [], []
     never = torch.full_like(rows, _ROW_SENTINEL)
-    consumed = torch.tensor(-3.0, dtype=sims.dtype, device=sims.device)
     for _ in range(k):
         best = sims.max(dim=0).values
         at_best = sims >= best[None]
         best_row = torch.where(at_best, rows, never).min(dim=0).values
         out_s.append(best)
         out_r.append(best_row)
-        sims = torch.where(at_best & (rows == best_row[None]), consumed,
-                           sims)
+        sims = torch.where(at_best & (rows == best_row[None]), -3.0, sims)
     return torch.stack(out_s), torch.stack(out_r)
 
 

@@ -180,15 +180,17 @@ def ivf_route_padded(cent, q, cmask, n_probe: int,
 
 
 def ivf_scan_batch(scores, cids, cidmap, members, assign, emb, mask, hard,
-                   added_at, guide, qs, k: int, required: int):
+                   added_at, guide, qs, k: int, required: int, cs: int = 0,
+                   csp: int = 0):
     """The IVF candidate read after the route: each query's top k over its
     routed clusters' member rows and the winners' packed meta, (sims
     (B, k), meta (B, k, 4 + G))
-    (:func:`repro_torch.kernels.memory_ivf.ivf_scan_batch_plain`)."""
+    (:func:`repro_torch.kernels.memory_ivf.ivf_scan_batch_plain`); ``cs``/
+    ``csp`` > 0 read a sharded store's rows at (g // cs) * csp + g % cs."""
     if _on_cuda(emb, scores, qs, mask):
         return _ivf.ivf_scan_batch_cuda(scores, cids, cidmap, members,
                                         assign, emb, mask, hard, added_at,
-                                        guide, qs, k, required)
+                                        guide, qs, k, required, cs, csp)
     return _ivf.ivf_scan_batch_plain(scores, cids, cidmap, members, assign,
                                      emb, mask, hard, added_at, guide, qs, k,
-                                     required)
+                                     required, cs, csp)

@@ -204,8 +204,10 @@ class ServingFabric:
         # replica's queue (None unless shadow_mode == "adaptive")
         self.drain_policy = (AdaptiveDrainPolicy()
                              if cfg.shadow_mode == "adaptive" else None)
-        # one store, N views: the store is written in place, and every
-        # commit apply hands the same object to every replica's view
+        # one store, N views: the store (a MemoryState or an injected
+        # ShardedMemory) is written in place, every commit apply hands the
+        # same object to every replica's view, and the stream's lock makes
+        # it reader-atomic
         if memory is not None:
             store = memory
         elif recovered is not None:

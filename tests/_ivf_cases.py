@@ -103,3 +103,21 @@ def scan_args(ix, scores, cids, qs, k, required):
     return (scores, cids, ix["cidmap"], ix["members"], ix["assign"],
             ix["emb"], ix["mask"], ix["hard"], ix["added_at"], ix["guide"],
             qs, k, required)
+
+
+def sharded(ix, S, pad=0):
+    """``ix``'s store in the sharded layout of S shards
+    (``repro_torch.core.memory_sharded``): slot g at row
+    (g // cs) * csp + g % cs, with cs = C / S and csp =
+    ``padded_rows(cs) + pad`` zero rows a shard. Returns (emb, mask, cs,
+    csp)."""
+    C = ix["assign"].shape[0]
+    cs = C // S
+    csp = tmt.padded_rows(cs) + pad
+    slots = torch.arange(C)
+    rows = (slots // cs) * csp + slots % cs
+    emb = torch.zeros((S * csp, ix["emb"].shape[1]), dtype=torch.float32)
+    mask = torch.zeros((S * csp, 1), dtype=torch.int32)
+    emb[rows] = ix["emb"][:C]
+    mask[rows] = ix["mask"][:C]
+    return emb, mask, cs, csp

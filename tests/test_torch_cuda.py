@@ -15,7 +15,9 @@ persistent CTA's tiles, empty views, the workspaces kept between calls,
 and the compact top-1 store read as it is. The route cases cover planes
 of 64, 1000 and 1024 centroids at B of 1 to 33 and n_probe of 1, 4 and
 64; the IVF candidate-read cases stale members, empty bucket slots, dead
-probes, k beyond the kept candidates and the guides-only view.
+probes, k beyond the kept candidates, the guides-only view and a sharded
+store's row geometry. The sharded store at 65536 rows is held to the
+single-device store on the card, bit for bit.
 
 The attention cases cover the split-KV decode (several chunks, a window
 across a chunk boundary, cache_len per row, cache_len = 0, repeated calls
@@ -288,6 +290,74 @@ def test_cuda_ivf_scan_matches_plain(cuda, B, n_probe, k, guides_only):
                                    for a in args))
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("S,pad", [(2, 0), (3, 8), (4, 0), (5, 3)])
+def test_cuda_ivf_scan_sharded_layout_matches_plain(cuda, S, pad, k):
+    """The candidate read over a sharded store (slot g at row
+    (g // cs) * csp + g % cs; 300 slots as 2 x 150 in 152-row shards, 3 x
+    100 in 112, 4 x 75 in 80, 5 x 60 in 67): sims and packed meta exactly
+    the plain version's, which equal the flat store's read."""
+    ix = ivf_cases.index(40 + S)
+    qs = ivf_cases.queries(ix, S, 8)
+    scores, cids = ivf_cases.route(ix, qs, 3, S)
+    flat = ivf_cases.scan_args(ix, scores, cids, qs, k, tmt.MASK_VALID)
+    emb, mask, cs, csp = ivf_cases.sharded(ix, S, pad)
+    args = flat[:5] + (emb, mask) + flat[7:]
+    want = tivf.ivf_scan_batch_plain(*args, cs=cs, csp=csp)
+    flat_want = tivf.ivf_scan_batch_plain(*flat)
+    got = ops.ivf_scan_batch(*(a.to(cuda) if torch.is_tensor(a) else a
+                               for a in args), cs=cs, csp=csp)
+    for g, w, f in zip(got, want, flat_want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+        np.testing.assert_array_equal(w.numpy(), f.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 4, 8])
+def test_cuda_sharded_reads_equal_single_device(cuda, S):
+    """ShardedMemory on the card at C = 65536 x 384 (S launches of the
+    store kernels and the merge) is bit-identical to MemoryState on the
+    card after the same commits: query, query_batch, query_topk and
+    query_topk_batch at k in (1, 4), both views; and its IVF plane (1024
+    clusters, 4 probes) equals the single-device plane's reads."""
+    from repro_torch.core import memory as tmem
+    from repro_torch.core.memory_ivf import IVFMemory
+    from repro_torch.core.memory_sharded import ShardedMemory
+    C = 65536
+    cfg = tmem.MemoryConfig(capacity=C, embed_dim=384, guide_len=4)
+    rng = np.random.default_rng(S)
+    single = tmem.init_memory(cfg, device=cuda)
+    sharded = ShardedMemory(cfg, shards=S, device=cuda)
+    stores = (single, sharded)
+    if S == 4:
+        stores = tuple(IVFMemory(st, clusters=1024, probes=4)
+                       for st in stores)
+    X = _queries(rng, C + 1000, 384)
+    X[C // S + 5] = X[3]                       # a tie across shards
+    for i in range(0, len(X), 8192):
+        xb = X[i:i + 8192]
+        n = len(xb)
+        args = (xb, rng.integers(0, 50, (n, 4)).astype(np.int32),
+                rng.random(n) < 0.5, rng.random(n) < 0.5,
+                np.arange(i, i + n, dtype=np.int32))
+        for st in stores:
+            tmem.add_batch(st, *args)
+    qs = torch.from_numpy(X[:32]).to(cuda)
+    for g in (False, True):
+        reads = [(tmem.query(st, qs[3], guides_only=g),
+                  tmem.query_batch(st, qs, guides_only=g))
+                 + tuple(r for k in (1, 4) for r in (
+                     tmem.query_topk(st, qs[3], k, guides_only=g),
+                     tmem.query_topk_batch(st, qs, k, guides_only=g)))
+                 for st in stores]
+        for a, b in zip(*reads):
+            a, b = a.device_get(), b.device_get()
+            np.testing.assert_array_equal(np.atleast_1d(a.sim).view(np.int32),
+                                          np.atleast_1d(b.sim).view(np.int32))
+            np.testing.assert_array_equal(a.meta, b.meta)
 
 
 @pytest.mark.cuda

@@ -19,18 +19,23 @@ from test_rar_controller import greq, make_cfg, prompt, skill_emb
 from test_torch_pipeline import _fake_tiers, _port_cfg
 from test_torch_shadow import WAIT, _split, assert_same, build, serve_stream
 
+from repro_torch.core import ShardedMemory
 from repro_torch.core import memory as mem
 from repro_torch.core.shadow import PENDING
 from repro_torch.serving.fabric import ServingFabric
 
 
 def build_fabric(replicas=1, weak_known=(), weak_follows_guides=True,
-                 fault_plan=None, **cfg_kw):
+                 fault_plan=None, shards=0, **cfg_kw):
     """``test_fabric.build_fabric`` on the port (``memory=`` in
-    ``cfg_kw`` is a JAX ``MemoryConfig``, as in ``make_cfg``)."""
+    ``cfg_kw`` is a JAX ``MemoryConfig``, as in ``make_cfg``); ``shards``
+    > 0 injects one ``ShardedMemory`` of that many shards."""
     weak, strong = _fake_tiers(weak_known, weak_follows_guides)
+    cfg = _port_cfg(make_cfg(**cfg_kw))
+    store = (ShardedMemory(cfg.memory, shards=shards, device="cpu")
+             if shards else None)
     return ServingFabric(weak, strong, lambda p: None, lambda e, k: False,
-                         _port_cfg(make_cfg(**cfg_kw)), replicas=replicas,
+                         cfg, replicas=replicas, memory=store,
                          fault_plan=fault_plan, device="cpu")
 
 
@@ -128,6 +133,41 @@ def test_one_replica_fabric_shadow_modes_match_inline_and_jax(shadow_mode):
     assert_fabric_same(jb, jb_outs, b, b_outs)
     for fab in (a, b, jb):
         fab.close_shadow()
+
+
+def test_serialized_replicas_on_one_sharded_store_match_jax():
+    """Two replicas over one 4-shard ``ShardedMemory``, one ticket at a
+    time: the store is one object in every view (the IVF wrap too, made
+    once before the replicas), and the run equals the same fabric on a
+    ``MemoryState`` and JAX's fabric on its own, field for field."""
+    kw = dict(weak_known={0, 1})
+    stream = make_stream()
+    runs = []
+    for fab in (build_fabric(2, shards=4, **kw), build_fabric(2, **kw),
+                jbuild_fabric(2, **kw)):
+        outs = []
+        for start in range(0, len(stream), 4):
+            chunk = stream[start:start + 4]
+            outs += fab.submit(
+                [prompt(s, x) for s, x in chunk],
+                [greq(s) for s, _ in chunk], keys=chunk,
+                embs=np.stack([skill_emb(s) for s, _ in chunk])
+            ).wait(timeout=WAIT)
+        fab.flush_shadow(timeout=WAIT)
+        runs.append((fab, outs))
+    (sh, sh_outs), (single, single_outs), (jfab, jouts) = runs
+    assert all(r.memory is sh.learn.memory for r in sh.replicas)
+    assert isinstance(sh.memory, ShardedMemory)
+    assert_fabric_same(single, single_outs, sh, sh_outs)
+    assert_fabric_same(jfab, jouts, sh, sh_outs)
+    for fab, _ in runs:
+        fab.close_shadow()
+
+    wrapped = build_fabric(2, shards=4, retrieval_clusters=4,
+                           retrieval_probes=1, **kw)
+    assert all(r.memory is wrapped.learn.memory for r in wrapped.replicas)
+    assert isinstance(wrapped.memory.store, ShardedMemory)
+    wrapped.close_shadow()
 
 
 # ---------------------------------------------------------------------------

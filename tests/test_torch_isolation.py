@@ -14,7 +14,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs import rar_system as trar
-from repro_torch.core import embedder, memory
+from repro_torch.core import ShardedMemory, embedder, memory
 from repro_torch.core.pipeline import MicrobatchRAR
 from repro_torch.core.router import train_router
 from repro_torch.experiments import build_system, run_rar_experiment
@@ -45,7 +45,8 @@ def test_no_jax_or_reference_package_in_sys_modules():
               "repro_torch.launch.serve", "repro_torch.serving.fabric",
               "repro_torch.serving.procfabric",
               "repro_torch.serving.scheduler",
-              "repro_torch.serving.loadgen"):
+              "repro_torch.serving.loadgen",
+              "repro_torch.core.memory_sharded"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -67,6 +68,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
         init_params(trar.WEAK, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         memory.init_memory(memory.MemoryConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedMemory(memory.MemoryConfig(), shards=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         embedder.init_params(trar.EMBEDDER)
     with pytest.raises(RuntimeError, match="device='cpu'"):

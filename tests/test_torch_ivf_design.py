@@ -106,6 +106,41 @@ def test_ivf_scan_plain_matches_jax(B, n_probe, k, guides_only):
     assert (bits[keys >= SENTINEL] == 0).all()
 
 
+@pytest.mark.parametrize("S,pad,k,guides_only", [
+    (2, 0, 4, False), (3, 8, 1, True), (4, 0, 32, False), (5, 3, 4, True)])
+def test_ivf_scan_plain_sharded_layout(S, pad, k, guides_only):
+    """The candidate read over a sharded store (slot g at row
+    (g // cs) * csp + g % cs, ``csp`` padded past ``cs``) equals the read
+    over the flat store of the same slots, and JAX's
+    ``_ivf_topk_batch_jit`` at the same geometry."""
+    B, n_probe = 8, 3
+    ix = ivf_cases.index(40 + S)
+    qs = ivf_cases.queries(ix, S, B)
+    scores, cids = ivf_cases.route(ix, qs, n_probe, S)
+    req = tmt.MASK_VALID | (tmt.MASK_GUIDE if guides_only else 0)
+    flat = ivf_cases.scan_args(ix, scores, cids, qs, k, req)
+    emb, mask, cs, csp = ivf_cases.sharded(ix, S, pad)
+    args = flat[:5] + (emb, mask) + flat[7:]
+    want = tivf.ivf_scan_batch_plain(*flat)
+    got = tivf.ivf_scan_batch_plain(*args, cs=cs, csp=csp)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plane = (ix["cent"], ix["cmask"], ix["cidmap"])
+    jx = _ivf_topk_batch_jit(
+        (tuple(jnp.asarray(t.numpy()) for t in plane),),
+        jnp.asarray(ix["members"].numpy()), jnp.asarray(ix["assign"].numpy()),
+        jnp.asarray(emb.numpy()), jnp.asarray(mask.numpy()),
+        jnp.asarray(ix["hard"].numpy()), jnp.asarray(ix["added_at"].numpy()),
+        jnp.asarray(ix["guide"].numpy()), jnp.asarray(qs.numpy()), k=k,
+        n_probe=n_probe, required=req, cs=cs, csp=csp)
+    # JAX routes for itself: compare where the route made no probe dead
+    live = (scores > -2.0).all(dim=1).numpy()
+    np.testing.assert_array_equal(np.asarray(jx.meta)[live],
+                                  got[1].numpy()[live])
+    np.testing.assert_allclose(np.asarray(jx.sim)[live], got[0].numpy()[live],
+                               atol=ULP2, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # the kernel's decomposition, emulated
 # ---------------------------------------------------------------------------

@@ -1,13 +1,15 @@
 """The port's IVF two-level retrieval plane against the JAX package's: the
-single-device twins of ``tests/test_memory_ivf.py``. The same op sequences
+twins of ``tests/test_memory_ivf.py``. The same op sequences
 on stores built from the same numpy inputs give identical cluster
 assignments and member buckets, centroids within 2 ulp, and reads with
 identical indices and metadata and sims within 2 ulp at 1.0 (the rows are
 unit cosines; the batch read's einsum sums 32 products in another order).
 
 The hypothesis sweeps of the JAX file become fixed parametrised cases
-here; its two sharded-store tests have no twin (the sharded store is not
-ported, and the port refuses it).
+here. Its two sharded-store tests are twinned against the single-device
+store, since JAX's ``ShardedMemory`` raises under JAX 0.9: the port's plane
+over a sharded backing must equal the port's and JAX's over a
+``MemoryState`` after the same commits.
 """
 import dataclasses
 
@@ -23,7 +25,9 @@ from repro.core.rar import RARConfig as JConfig
 from repro.kernels import ref as jref
 from repro.kernels.memory_topk import to_padded_layout as jlayout
 from repro_torch.core import memory as tmem
-from repro_torch.core.memory_ivf import IVFMemory, wrap_store
+from repro_torch.core.memory_ivf import (IVFMemory, _route_merged,
+                                         _route_merged_batch, wrap_store)
+from repro_torch.core.memory_sharded import ShardedMemory
 from repro_torch.core.rar import RAR, RARConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.memory_topk import MASK_VALID
@@ -232,10 +236,111 @@ def test_controller_default_keeps_raw_store():
 
 
 def test_sharded_backing_refused():
-    """Only the single-device store is ported: anything else is refused
-    with the reason, never wrapped."""
-    with pytest.raises(TypeError, match="sharded"):
+    """A backing store that is neither a ``MemoryState`` nor a
+    ``ShardedMemory`` is refused with the reason, never wrapped."""
+    with pytest.raises(TypeError, match="MemoryState or a ShardedMemory"):
         IVFMemory(object(), clusters=4)
+
+
+# ---------------------------------------------------------------------------
+# Sharded composition: cluster c lives with shard c % S
+# ---------------------------------------------------------------------------
+
+
+def test_per_shard_route_merge_bit_identical():
+    """test_memory_ivf.py::test_per_shard_route_merge_bit_identical: the S
+    per-shard centroid subsets' routes, merged, equal the global plane's
+    route, in the port and in JAX, single and batched."""
+    rng = np.random.default_rng(20)
+    from repro.core.memory_ivf import _route_merged as jroute
+    P, S, n_probe = 16, 4, 4
+    cent = _protos(rng, P)
+    bits = np.full(P, MASK_VALID, np.int32)
+
+    def planes(groups):
+        out, jout = [], []
+        for ids in groups:
+            cp, mp = jlayout(jnp.asarray(cent[ids]), jnp.asarray(bits[ids]),
+                             block_c=64)
+            jout.append((cp, mp, jnp.asarray(ids.astype(np.int32))))
+            out.append((torch.from_numpy(np.array(cp)),
+                        torch.from_numpy(np.array(mp)),
+                        torch.from_numpy(ids.astype(np.int32))))
+        return out, jout
+
+    glob, jglob = planes([np.arange(P)])
+    shard, jshard = planes([np.arange(s, P, S) for s in range(S)])
+    qs = _protos(rng, 4)
+    gs, gi = _route_merged_batch(glob, torch.from_numpy(qs), n_probe)
+    ss, si = _route_merged_batch(shard, torch.from_numpy(qs), n_probe)
+    assert torch.equal(gi, si) and torch.equal(gs, ss)
+    for b in range(len(qs)):
+        q = torch.from_numpy(qs[b])
+        s1, i1 = _route_merged(shard, q, n_probe)
+        assert torch.equal(i1, si[b]) and torch.equal(s1, ss[b])
+        js, ji = jroute(jshard, jnp.asarray(qs[b]), n_probe)
+        np.testing.assert_array_equal(np.asarray(ji), i1.numpy())
+        np.testing.assert_allclose(np.asarray(js), s1.numpy(), atol=ULP2,
+                                   rtol=0)
+        jgs, jgi = jroute(jglob, jnp.asarray(qs[b]), n_probe)
+        np.testing.assert_array_equal(np.asarray(jgi), np.asarray(ji))
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_sharded_backing_matches_exact(S):
+    """test_memory_ivf.py::test_sharded_backing_matches_exact at S shards:
+    with every probe the geometry allows (probes = clusters / S; all of
+    them at S = 1) the reads equal the exact oracle on clustered rows, and
+    every read equals JAX's plane over a single-device ``MemoryState``
+    after the same commits (a wrapped ring), rows, meta and sims."""
+    rng = np.random.default_rng(21 + S)
+    C, P = 128, 8
+    probes = P // S
+    kw = dict(clusters=P, probes=probes)
+    j = JIVF(jmem.init_memory(jmem.MemoryConfig(**_cfg(C))), **kw)
+    sh = IVFMemory(ShardedMemory(tmem.MemoryConfig(**_cfg(C)), shards=S,
+                                 device="cpu"), **kw)
+    protos = _protos(rng, P)
+    _fill((j, sh), rng, _clustered(rng, protos, C + 40))
+    _same_index(j, sh)
+    qs = _clustered(rng, protos, 6)
+    for k, guides_only in ((1, False), (4, True)):
+        _assert_matches_exact(sh, qs[0], k, guides_only)
+        _assert_matches_exact(sh, qs, k, guides_only, batch=True)
+        _reads_match_jax(j, sh, qs, k, guides_only)
+
+
+def test_sharded_offload_matches_jax_single_device():
+    """The offload read over a sharded backing gathers its hot rows at
+    their physical rows: it equals JAX's offload plane over a
+    ``MemoryState`` query for query, and the traffic split too."""
+    rng = np.random.default_rng(26)
+    C, P, S = 128, 8, 2
+    kw = dict(clusters=P, probes=2, offload=True, cold_after=4)
+    j = JIVF(jmem.init_memory(jmem.MemoryConfig(**_cfg(C))), **kw)
+    sh = IVFMemory(ShardedMemory(tmem.MemoryConfig(**_cfg(C)), shards=S,
+                                 device="cpu"), **kw)
+    protos = _protos(rng, P)
+    _fill((j, sh), rng, _clustered(rng, protos, C))
+    for q in _clustered(rng, protos, 8):
+        _same_result(j.query_topk(jnp.asarray(q), 3), sh.query_topk(q, 3))
+    assert sh.stats() == j.stats()
+    assert sh.stats()["host_fetch_rows"] > 0
+
+
+def test_sharded_backing_refusals():
+    """Cluster c lives with shard c % S: clusters must divide by S, and a
+    read probes at most clusters / S of them; grow is not supported over
+    a sharded store (JAX's messages)."""
+    store = ShardedMemory(tmem.MemoryConfig(**_cfg(64)), shards=4,
+                          device="cpu")
+    with pytest.raises(ValueError, match="not divisible by 4 shards"):
+        IVFMemory(store, clusters=6, probes=1)
+    with pytest.raises(ValueError, match="exceeds the 2 clusters per shard"):
+        IVFMemory(store, clusters=8, probes=3)
+    ivf = IVFMemory(store, clusters=8, probes=2)
+    with pytest.raises(NotImplementedError, match="sharded backing"):
+        ivf.grow(128)
 
 
 # ---------------------------------------------------------------------------

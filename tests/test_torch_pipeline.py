@@ -55,6 +55,9 @@ def _host(x):
 
 
 def _same_store(a, b):
+    """Every store field equal; a sharded store is compared as the
+    single-device store it gathers into."""
+    a, b = (getattr(x, "to_single_device", lambda x=x: x)() for x in (a, b))
     for f in MEM_FIELDS:
         np.testing.assert_array_equal(_host(getattr(a, f)),
                                       _host(getattr(b, f)), f)

@@ -1,6 +1,7 @@
 """The port's shadow queue against the JAX package's: the twin of
-``tests/test_shadow.py`` except its sharded-store stress case (a reference
-fault: ``ShardedMemory`` raises under JAX 0.9).
+``tests/test_shadow.py``. Its sharded-store stress case is a reference
+fault (JAX's ``ShardedMemory`` raises under JAX 0.9); the port's twin runs
+the same invariants on the port's ``ShardedMemory``.
 
 Each case runs the JAX controller and the port's (on the CPU) over the same
 stream with the same rule-based FakeTier tiers. The equivalence chain
@@ -22,6 +23,7 @@ from repro.core import memory as jmem
 from repro.core.decisions import coalesce_shadow_items as jcoalesce
 from repro.core.pipeline import MicrobatchRAR as JMicro
 from repro.core.rar import RAR as JRAR
+from repro_torch.core import ShardedMemory
 from repro_torch.core import memory as tmem
 from repro_torch.core.decisions import coalesce_shadow_items as tcoalesce
 from repro_torch.core.pipeline import MicrobatchRAR as TMicro
@@ -513,16 +515,16 @@ def test_property_coalesce_groups_match_jax(seed, n, thresh):
 
 
 # ---------------------------------------------------------------------------
-# Async stress (single store)
+# Async stress (single and sharded store)
 # ---------------------------------------------------------------------------
 
 
-def test_async_stress_single_store():
-    """test_shadow.py::test_async_stress_single_store (1.2 s, and at least
-    40 batches): the drainer under injected drain delays and ring
-    wraparound. Every item drains exactly once in seq order, every
-    Outcome resolves, and the ring pointer advanced once per applied
-    entry."""
+def _stress(sharded: bool = False, drain_delay: float = 0.002):
+    """test_shadow.py::_stress (1.2 s, and at least 40 batches): the
+    drainer under injected drain delays and ring wraparound. Every item
+    drains exactly once in seq order, every Outcome resolves, and the ring
+    pointer advanced once per applied entry. Returns the controller and
+    its Outcomes."""
     cap, flush_every = 8, 2
     weak = FakeTier(known={0, 1}, name="weak")
     strong = FakeTier(known=range(10_000), can_guide=True, name="strong")
@@ -531,9 +533,11 @@ def test_async_stress_single_store():
                              memory=jmem.MemoryConfig(capacity=cap,
                                                       embed_dim=16,
                                                       guide_len=8)))
+    memory = (ShardedMemory(cfg.memory, shards=4, device="cpu") if sharded
+              else None)
     ctrl = TMicro(weak, strong, lambda p: None, lambda e, k: False, cfg,
-                  device="cpu")
-    ctrl.shadow.drain_delay = 0.002
+                  memory=memory, device="cpu")
+    ctrl.shadow.drain_delay = drain_delay
     drained: list[int] = []
     orig = ctrl._drain_shadow
 
@@ -561,3 +565,18 @@ def test_async_stress_single_store():
     assert ctrl.memory_occupancy == ctrl.memory.size_fast
     assert ctrl.memory.ptr > cap
     assert q.drains >= 1
+    return ctrl, outs
+
+
+def test_async_stress_single_store():
+    """test_shadow.py::test_async_stress_single_store."""
+    _stress()
+
+
+def test_async_stress_sharded_store():
+    """test_shadow.py::test_async_stress_sharded_store on the port's
+    ShardedMemory (4 shards of 2 rows): the same invariants, and every
+    slot of the wrapped ring valid in ``to_single_device``."""
+    ctrl, outs = _stress(sharded=True, drain_delay=0.005)
+    assert isinstance(ctrl.memory, ShardedMemory) and outs
+    assert int(ctrl.memory.to_single_device().valid.sum()) == 8
