@@ -17,7 +17,8 @@ Phases, each of which fails the run on any error:
   llama3-8b also the kernel's and the library call's device time a call
   (``torch.profiler``) and time with the L2 flushed; and the split-KV
   decode's own cases (caches of 1024 and 4096, cache_len per row, an
-  empty cache);
+  empty cache, and the ring read: a 4096-slot ring past its wrap, with
+  and without a window);
 * R: ``MicrobatchRAR`` serving the ``rar_throughput`` workload (pool 64,
   2 passes, microbatch 8 and 32) on the card and on the CPU in the same
   process, with identical Outcome streams, FM calls and stores required
@@ -31,6 +32,21 @@ Phases, each of which fails the run on any error:
   agree in every step;
 * L: ``ServingEngine.generate_bucketed`` at the full width of llama3-8b
   (bf16, random weights from a seed) serving 8 mixed-length requests;
+* Z (after L): the model zoo's dense and moe families at full width, one
+  model at a time, freed between, random weights from a seed (bf16). Z1:
+  olmoe-1b-7b (16 layers, 64 experts top-8) and Z2: granite-moe-3b-a800m,
+  olmo-1b, gemma3-27b (one 1300-token prompt, past its 1024-token local
+  windows) and deepseek-coder-33b, each at full depth, serve prompts
+  through ``ServingEngine.generate_bucketed`` (ms/request, tokens/s, peak
+  memory, the card's busy share under the profiler; flash and decode must
+  launch), and the kernel path's prefill and first decode-step logits are
+  held to ``forward`` (``layers.attention``) on the card within Z_TOL of
+  the largest logit, argmax equal where the top-2 margin exceeds it. Z3:
+  the ring KV cache, olmoe-1b-7b with a 256-slot ring over 300 decode
+  steps and gemma3-27b cut to 6 layers (one 5:1 group) with a 1024-slot
+  ring over 1100, B = 2, every step's logits equal to the full cache's at
+  the same ``decode_window`` (rtol = atol = 2e-4), through the decode
+  kernel in ring mode;
 * S: the trained system on the card. S0 runs 5 train steps of rar-weak
   (AdamW) and of the embedder (Adam) from one init on the card and on the
   CPU (losses within 1e-4 relative, parameters within 1e-4 of the
@@ -89,11 +105,11 @@ Phases, each of which fails the run on any error:
   M2: the exact reads (``query``, ``query_batch``, top-k at k = 1 and 4,
   B = 32, both views) at E = 384 on stores of 65536 and 4,194,304 rows at
   1, 4, 8 and 16 shards are bit-identical to a single-device store that
-  took the same commits (at 65536 also to the CPU's plain reads; top-4 at
-  4,194,304 rows, past the top-k kernel's list mode on one store, only at
-  16 shards, against the kernel's plain version on the card), with
+  took the same commits (at 65536 also to the CPU's plain reads), with
   CUDA-event and device times beside the single-device read's and the
-  bytes' bound.
+  bytes' bound. Z4 runs inside it: at 4,194,304 rows the single-device
+  top-4 reads (B = 1 and 32) equal the kernel's plain version on the card
+  bit for bit (the list mode's merge in two rounds), timed.
   M3: I2's setting on a 4-shard backing (the route merged from 4 planes)
   serves I2's Outcome stream, store and index, reads as I2's card and CPU
   reads bit for bit and has I2's recall@4; its read is timed beside I2's.
@@ -102,9 +118,10 @@ Phases, each of which fails the run on any error:
 
 The launch counters are zeroed right before each main-path phase (for S,
 before S1; A1-A3 together, A4 alone, F1-F4 together, M1-M4 together, F5
-alone) and read right after it, a process fabric's workers' counts added,
-Phase M's timed reads' launches taken out; a kernel of the path that did
-not launch fails the run.
+alone, each of Z's serving and ring runs) and read right after it, a
+process fabric's workers' counts added, Phase M's timed reads' and Phase
+Z's checks' launches taken out; a kernel of the path that did not launch
+fails the run.
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": ...}``.
 
@@ -158,12 +175,22 @@ F5_REQUESTS = 64                 # F5: the launcher's pool
 M1_SHARDS = (2, 4)               # M1: logical shards of R1's store
 M2_CAPACITIES = (65536, 4_194_304)   # M2: stores of 384-lane rows
 M2_SHARDS = (1, 4, 8, 16)        # M2: shards beside the single-device store
-# M2: where the top-k kernel takes k = 4 (0: the single-device store); its
-# list mode merges at most ~385K rows at B = 32 (a head per tile in shared
-# memory), so at 4,194,304 rows only the 16-shard store reads top-4
-M2_TOPK4 = {4_194_304: (16,)}
 M2_COMMIT, M2_B = 65536, 32      # M2: rows a commit, queries a read
 M3_SHARDS = 4                    # M3: I2's store on a sharded backing
+Z_SEED, Z_MAX_NEW = 5, 8         # Z1/Z2: weights' seed, tokens a request
+# Z1/Z2: (arch, prompt lengths, depth cut or None), one at a time, freed
+# between; gemma3-27b's 1300 tokens run past its 1024-token local windows
+Z_MODELS = (("olmoe-1b-7b", (17, 130), None),
+            ("granite-moe-3b-a800m", (17, 130), None),
+            ("olmo-1b", (17, 130), None),
+            ("gemma3-27b", (1300,), None),
+            ("deepseek-coder-33b", (17, 130), None))
+# Z1/Z2: the kernel path's logits within Z_TOL x the largest reference
+# logit of the training path's (both bf16 on the card; PERF.md, PR 21)
+Z_TOL = 0.05
+# Z3: (arch, decode_window = ring slots, decode steps, B, depth cut)
+Z_RINGS = (("olmoe-1b-7b", 256, 300, 2, None),
+           ("gemma3-27b", 1024, 1100, 2, 6))
 
 
 def log(*a):
@@ -599,18 +626,20 @@ def phase_k(torch):
                                                                **kw)),
                time_ms(torch, lib), b, **extra)
 
-    def decode_case(tag, B, M, cl, H, KV, hd, dtype, window=0):
+    def decode_case(tag, B, M, cl, H, KV, hd, dtype, window=0, ring=False):
         """``cl``: one cache length for every row, or a list of B. It goes
         in as a (B,) int32 tensor already on the card, as the model passes
-        it, so no timed call pays a host-to-device copy."""
+        it, so no timed call pays a host-to-device copy. ``ring``: the
+        cache is a ring of M slots (position p in slot p % M)."""
         g = torch.Generator(device=dev).manual_seed(M * 1000 + H)
         q = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
         k = torch.randn((B, M, KV, hd), generator=g, device=dev).to(dtype)
         v = torch.randn((B, M, KV, hd), generator=g, device=dev).to(dtype)
         lens = [cl] * B if isinstance(cl, int) else list(cl)
         clt = torch.tensor(lens, dtype=torch.int32, device=dev)
-        got = da.decode_attention_cuda(q, k, v, clt, window=window)
-        want = da.decode_attention_plain(q, k, v, clt, window=window)
+        got = da.decode_attention_cuda(q, k, v, clt, window=window, ring=ring)
+        want = da.decode_attention_plain(q, k, v, clt, window=window,
+                                         ring=ring)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_TOL[str(dtype).split(".")[1]]
@@ -619,8 +648,18 @@ def phase_k(torch):
                                  f"{err} > {tol}")
         spans = [(max(0, n - window) if window else 0, min(M, n))
                  for n in lens]
+        if ring:            # the valid positions, their number
+            spans = [(max(0, n - min(window or M, M)), n) for n in lens]
         qt = q[:, :, None]
-        if len(set(lens)) == 1:
+        if ring:
+            # every slot holding a valid position (all M once the ring
+            # has wrapped, with no window)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            slot = torch.arange(M, device=dev)
+            mask = torch.stack([
+                (n - 1 - (n - 1 - slot) % M >= lo) for n, (lo, _)
+                in zip(lens, spans)])[:, None, None, :]
+        elif len(set(lens)) == 1:
             lo, hi = spans[0]
             kt = k[:, lo:hi].transpose(1, 2)
             vt = v[:, lo:hi].transpose(1, 2)
@@ -636,20 +675,23 @@ def phase_k(torch):
                                                   enable_gqa=True)
 
         def kernel():
-            return da.decode_attention_cuda(q, k, v, clt, window=window)
+            return da.decode_attention_cuda(q, k, v, clt, window=window,
+                                            ring=ring)
         n = sum(hi - lo for lo, hi in spans)
         es = q.element_size()
         b = bound((2 * q.numel() + 2 * n * KV * hd) * es, 4 * H * n * hd,
                   BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
         shown = cl if isinstance(cl, int) else list(cl)
-        extra = (card_times(f"decode_M{M}_w{window}_B{B}", kernel, lib)
+        extra = (card_times(f"decode_M{M}_w{window}_B{B}"
+                            f"{'_ring' if ring else ''}", kernel, lib)
                  if tag == "llama3-8b" else {})
         record("decode_attention",
                f"{tag} B={B} M={M} cache_len={shown} H={H} KV={KV} hd={hd} "
-               f"{str(dtype)[6:]} window={window}", err,
+               f"{str(dtype)[6:]} window={window}"
+               + (" ring" if ring else ""), err,
                time_ms(torch, kernel),
                time_ms(torch, lambda: da.decode_attention_plain(
-                   q, k, v, clt, window=window)),
+                   q, k, v, clt, window=window, ring=ring)),
                time_ms(torch, lib), b, **extra)
 
     def decode_empty_cache(H, KV, hd, dtype):
@@ -693,6 +735,39 @@ def phase_k(torch):
                 [301, 17, 130, 300, 1, 64, 255, 308], 32, 8, 128, bf16)
     decode_case("rar-strong", 8, 132, [131, 3, 64, 132, 1, 77, 100, 16], 6,
                 6, 32, f32)
+    # the ring KV cache: a 4096-slot ring past its wrap (all slots valid,
+    # against the prefix read of cache 4096 above), a window inside the
+    # ring, per-row lengths before and after the wrap
+    decode_case("llama3-8b", 1, 4096, 2 * 4096 + 100, 32, 8, 128, bf16,
+                ring=True)
+    decode_case("llama3-8b", 1, 4096, 2 * 4096 + 100, 32, 8, 128, bf16,
+                window=1024, ring=True)
+    decode_case("olmoe-1b-7b", 2, 256, [300, 200], 16, 16, 128, bf16,
+                ring=True)
+    # the zoo at the shapes Phase Z gives the kernels: each Z1/Z2 model's
+    # heads, head width and dtype, its prompts' prefills and their first
+    # decode step's cache, at each window its layers have; each Z3 ring
+    # at its slots and the window its layers pass (a layer's own, else
+    # decode_window), with rows before, at and past the wrap
+    from repro_torch import configs
+    for arch, lengths, _ in Z_MODELS:
+        cfg = configs.get(arch)
+        shape = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                 getattr(torch, cfg.param_dtype))
+        for Sq in lengths:
+            for window in sorted(set(cfg.layer_windows())):
+                attn_case(arch, 1, Sq, *shape, window=window)
+                decode_case(arch, 1, Sq + Z_MAX_NEW, Sq + 1, *shape,
+                            window=window)
+    for arch, M, steps, B, _ in Z_RINGS:
+        cfg = configs.get(arch)
+        shape = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                 getattr(torch, cfg.param_dtype))
+        for window in sorted({w if w > 0 else M
+                              for w in cfg.layer_windows()}):
+            for lens in ([steps, M + 1], [M, M // 2]):
+                decode_case(arch, B, M, lens, *shape, window=window,
+                            ring=True)
     decode_empty_cache(32, 8, 128, bf16)
     decode_empty_cache(6, 6, 32, f32)
     return rows
@@ -1187,6 +1262,254 @@ def phase_l(torch, ops):
         f"tokens/s (prompt + generated), launches {counts}")
     return counts, dict(ms_per_request=dt * 1e3 / len(prompts),
                         tokens_per_s=toks / dt)
+
+
+# ---------------------------------------------------------------------------
+# Phase Z: the model zoo's dense and moe families at full width
+# ---------------------------------------------------------------------------
+
+
+def busy_ms(torch, fn, tag):
+    """The card's busy time (the union of its kernels', copies' and
+    memsets' intervals) over one run of ``fn`` under ``torch.profiler``,
+    and the profiled wall; (None, wall) if the profile caught no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof, ROOT / "build" / "trace" / f"{tag}.json")
+    return (union_us(events) / 1e3 if events else None), wall
+
+
+def union_us(events):
+    """Microseconds in which some kernel, copy or memset of ``events``
+    (chrome-trace device events) ran."""
+    busy, end = 0.0, float("-inf")
+    for s, t in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return busy
+
+
+def z_logit_check(torch, tag, got, want):
+    """``got`` (the kernel path) against ``want`` (the training path,
+    ``forward`` through ``layers.attention``), both (B, V) on the card:
+    the max difference within Z_TOL of the reference's largest logit, and
+    the same argmax in every row whose top-2 margin exceeds that bound.
+    Returns the numbers logged."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    rel_rms = ((got - want).norm() / want.norm()).item()
+    tol = Z_TOL * scale
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = got.argmax(-1) == want.argmax(-1)
+    if not err <= tol or not bool((same | (margin <= tol)).all()):
+        raise AssertionError(
+            f"{tag}: max |diff| {err:.4g} against {tol:.4g} (Z_TOL x max "
+            f"|logit| {scale:.4g}), rel rms {rel_rms:.3g}; argmax same "
+            f"{same.tolist()} at margins {margin.tolist()}")
+    return dict(err=err, scale=scale, rel_rms=rel_rms,
+                argmax_same=int(same.sum()), rows=len(same))
+
+
+def z_model(torch, ops, arch, lengths, cut=None):
+    """Z1/Z2 for one arch at full width (depth cut to ``cut`` layers if
+    given): random weights from a seed; ``ServingEngine.generate_bucketed``
+    on seeded prompts of ``lengths`` with Z_MAX_NEW new tokens, timed, its
+    kernel launches counted and its card busy share profiled; then, for
+    each prompt, the prefill's last logits against ``forward`` on the
+    prompt, and one decode step's against ``forward`` on the grown
+    sequence. A moe model routes with its own capacity factor in the
+    prefill check; its decode check runs at a capacity no token overflows
+    (E / k), since a forward over S + 1 tokens has another capacity than
+    the prefill over S and a decode step over 1, and drops other tokens.
+    Returns the launches of the serving run and the numbers."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.tree import leaves
+
+    cuda = torch.device(DEV)
+    cfg = configs.get(arch)
+    if cut is not None:
+        cfg = dataclasses.replace(cfg, num_layers=cut)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, Z_SEED, device=cuda)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size()
+                  for t in leaves(params)) / 1e9
+    log(f"Z {cfg.name}: {cfg.family}, {cfg.num_layers} layers"
+        f"{'' if cut is None else f' (depth cut from {configs.get(arch).num_layers})'}"
+        f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"of {cfg.head_dim}, vocab {cfg.vocab_size}"
+        + (f", {cfg.num_experts} experts top-{cfg.experts_per_token}"
+           if cfg.family == "moe" else "")
+        + f", windows {sorted(set(cfg.layer_windows()))}, "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm_type}, "
+        f"{cfg.param_dtype}: {weights:.2f} GB of random weights (seed "
+        f"{Z_SEED}) in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(Z_SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    engine = ServingEngine(cfg, params)
+    engine.generate_bucketed(prompts[:1], 2)        # warm the allocator
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate_bucketed(prompts, Z_MAX_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if out.shape != (len(prompts), Z_MAX_NEW) or out.min() < 0 or \
+            out.max() >= cfg.vocab_size:
+        raise AssertionError(f"Z {arch}: bad tokens {out.shape}")
+    for k in ("flash_attention", "decode_attention"):
+        if counts[k] == 0:
+            raise AssertionError(f"Z {arch} never launched {k}")
+    busy, wall = busy_ms(torch, lambda: engine.generate_bucketed(
+        prompts, Z_MAX_NEW), f"z_{arch}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    toks = sum(lengths) + len(prompts) * Z_MAX_NEW
+    res = dict(ms_per_request=dt * 1e3 / len(prompts), tokens_per_s=toks / dt,
+               max_memory_gb=peak, weights_gb=weights,
+               busy_share=None if busy is None else busy / wall, checks=[])
+    log(f"Z {cfg.name} served {len(prompts)} requests (lengths "
+        f"{tuple(lengths)}, max_new {Z_MAX_NEW}) in {dt:.3f} s: "
+        f"{res['ms_per_request']:.1f} ms/request, {res['tokens_per_s']:.1f} "
+        f"tokens/s (prompt + generated); max_memory_allocated {peak:.2f} GB; "
+        f"card busy {'not measured' if busy is None else f'{busy:.1f} ms of a profiled {wall:.1f} ms ({100 * busy / wall:.1f}%)'}; "
+        f"launches {counts}")
+
+    def check(ccfg, prompt, what):
+        t = torch.from_numpy(prompt).long().to(cuda)[None]
+        last, cache, pos = prefill(ccfg, params, {"tokens": t}, len(prompt) + 1)
+        if what == "prefill":
+            ref = forward(ccfg, params, {"tokens": t})[0][:, -1]
+            return z_logit_check(torch, f"Z {arch} prefill S={len(prompt)}",
+                                 last, ref)
+        nxt = last.argmax(-1).to(torch.int32)
+        step, _ = decode_step(ccfg, params, nxt, cache, pos)
+        ref = forward(ccfg, params, {"tokens": torch.cat(
+            [t, nxt[:, None].long()], 1)})[0][:, -1]
+        return z_logit_check(torch, f"Z {arch} decode pos={pos}", step, ref)
+
+    nodrop = cfg if cfg.family != "moe" else dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    before = ops.launch_counts()
+    for prompt in prompts:
+        for what, ccfg in (("prefill", cfg), ("decode", nodrop)):
+            c = check(ccfg, prompt, what)
+            res["checks"].append(dict(what=what, S=len(prompt), **c))
+            log(f"Z {cfg.name} {what} check S={len(prompt)}"
+                f"{' (capacity E/k)' if ccfg is not cfg else ''}: max |diff| "
+                f"{c['err']:.4g} <= {Z_TOL} x max |logit| {c['scale']:.4g}; "
+                f"rel rms {c['rel_rms']:.3g}; argmax same in "
+                f"{c['argmax_same']}/{c['rows']}")
+    after = ops.launch_counts()
+    if after["flash_attention"] == before["flash_attention"] or \
+            after["decode_attention"] == before["decode_attention"]:
+        raise AssertionError(f"Z {arch}: the checks' kernel path launched "
+                             f"no kernel")
+    del params, engine
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def z_ring(torch, ops, arch, window, steps, B, cut=None):
+    """Z3: ``steps`` decode steps from position 0 of ``B`` seeded token
+    streams with a ring of ``window`` slots (``ring_cache``) and with the
+    full cache at the same ``decode_window``; every step's logits equal
+    (JAX's test_ring_cache contract, rtol = atol = 2e-4), through the
+    decode kernel in ring mode past the wrap."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    cuda = torch.device(DEV)
+    cfg = configs.get(arch)
+    full = dataclasses.replace(cfg, decode_window=window,
+                               **({} if cut is None else {"num_layers": cut}))
+    ring = dataclasses.replace(full, ring_cache=True)
+    torch.cuda.empty_cache()
+    params = init_params(full, Z_SEED, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(Z_SEED).integers(
+        1, cfg.vocab_size, (steps, B)).astype(np.int32)).to(cuda)
+    caches = {"ring": init_cache(ring, B, steps, device=cuda),
+              "full": init_cache(full, B, steps, device=cuda)}
+    if caches["ring"]["k"].shape[2] != min(window, steps):
+        raise AssertionError(f"Z3 {arch}: ring of "
+                             f"{caches['ring']['k'].shape[2]} slots")
+    worst, identical = 0.0, 0
+    launched = {}
+    t_run = {"ring": 0.0, "full": 0.0}
+    for pos in range(steps):
+        logits = {}
+        for name, c in (("ring", ring), ("full", full)):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            logits[name], caches[name] = decode_step(c, params, toks[pos],
+                                                     caches[name], pos)
+            t_run[name] += time.perf_counter() - t0
+            n = ops.launch_counts()["decode_attention"]
+            launched[name] = launched.get(name, 0) + n
+        a, b = logits["ring"].float(), logits["full"].float()
+        if not torch.allclose(a, b, rtol=2e-4, atol=2e-4):
+            raise AssertionError(
+                f"Z3 {arch} pos {pos} ({'pre' if pos < window else 'post'}"
+                f"-wrap): ring differs from the full cache by "
+                f"{(a - b).abs().max().item():.4g}")
+        worst = max(worst, (a - b).abs().max().item())
+        identical += int(torch.equal(a, b))
+    torch.cuda.synchronize()
+    if launched["ring"] == 0:
+        raise AssertionError(f"Z3 {arch}: the ring run launched no decode "
+                             f"kernel")
+    log(f"Z3 {full.name}{'' if cut is None else f' (depth cut to {cut})'} "
+        f"B={B}: {steps} decode steps from position 0, a ring of "
+        f"{caches['ring']['k'].shape[2]} slots (decode_window {window}, "
+        f"wraps at {window}) against the full cache of {steps}: every step "
+        f"within rtol = atol = 2e-4, max |diff| {worst:.3g}, {identical} of "
+        f"{steps} steps bit-identical; decode launches ring "
+        f"{launched['ring']}, full {launched['full']}; host wall ring "
+        f"{t_run['ring']:.2f} s, full {t_run['full']:.2f} s (unsynchronised "
+        f"enqueue of each step)")
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"decode_attention": launched["ring"] + launched["full"]}, dict(
+        max_abs_diff=worst, identical_steps=identical, steps=steps)
+
+
+def phase_z(torch, ops):
+    """Z1-Z3 (Z4 is part of M2; see the module docstring). Returns the
+    launches of the serving and ring runs (not of the checks) and the
+    numbers."""
+    t_phase = time.perf_counter()
+    counts, results = {}, {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    for arch, lengths, cut in Z_MODELS:
+        c, results[arch] = z_model(torch, ops, arch, lengths, cut)
+        add(c)
+    for arch, window, steps, B, cut in Z_RINGS:
+        c, results[f"ring_{arch}"] = z_ring(torch, ops, arch, window, steps,
+                                            B, cut)
+        add(c)
+    log(f"Z took {time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return counts, results
 
 
 # ---------------------------------------------------------------------------
@@ -2463,7 +2786,6 @@ def phase_m(torch, ops, tiers, r_results, i_results):
     G = cfg.memory.guide_len
     for C in M2_CAPACITIES:
         mcfg = mem.MemoryConfig(capacity=C, embed_dim=384, guide_len=G)
-        topk4 = M2_TOPK4.get(C, (0,) + M2_SHARDS)
         single = mem.init_memory(mcfg, device=cuda)
         for commit in m2_commits(torch, C, G, cuda):
             mem.add_batch(single, *commit)
@@ -2473,11 +2795,25 @@ def phase_m(torch, ops, tiers, r_results, i_results):
         qs /= qs.norm(dim=1, keepdim=True)
         qs[0] = single.emb[5, :384]          # a row stored twice
         want = store_reads(single, qs, ks=(1,))
-        # k = 4 on the kernel where it takes the whole store, else its
-        # plain version on the card
-        want4 = (store_reads(single, qs, ks=(4,), top1=False) if 0 in topk4
-                 else plain_topk_reads(single, qs, 4))
+        want4 = store_reads(single, qs, ks=(4,), top1=False)
         line = []
+        if C != M2_CAPACITIES[0]:
+            # Z4: the single-device top-4 reads (B = 1 and 32, both views)
+            # past the list mode's old ~385K-row limit, bit for bit its
+            # plain version run on the card
+            same_reads(f"Z4 C={C}: top-4 kernel against its plain version",
+                       want4, plain_topk_reads(single, qs, 4))
+            z4 = {B: timed(lambda B=B: mem.query_topk_batch(single, qs[:B], 4),
+                           f"z4_{C}_B{B}") for B in (1, M2_B)}
+            log(f"Z4 C={C} x 384, one store: query_topk (B=1) and "
+                f"query_topk_batch (B={M2_B}) at k=4, both views, == the "
+                f"kernel's plain version on the card bit for bit; ms a read, "
+                f"CUDA events (device): "
+                + "; ".join(f"B={B} {show(t[0])} ({show(t[1])})"
+                            for B, t in z4.items()))
+            results[f"Z4_C{C}"] = {f"B{B}": dict(ms=t[0], device_ms=t[1])
+                                   for B, t in z4.items()}
+            line.append("single-device top-4 == its plain version (Z4)")
         if C == M2_CAPACITIES[0]:
             host = mem.init_memory(mcfg, device="cpu")
             for commit in m2_commits(torch, C, G, cuda):
@@ -2492,42 +2828,35 @@ def phase_m(torch, ops, tiers, r_results, i_results):
         rows = {"single": (timed(lambda: mem.query_batch(single, qs),
                                  f"m2_{C}_single_top1"),
                            timed(lambda: mem.query_topk_batch(single, qs, 4),
-                                 f"m2_{C}_single_top4") if 0 in topk4
-                           else None)}
+                                 f"m2_{C}_single_top4"))}
         for S in M2_SHARDS:
             sh = ShardedMemory(mcfg, shards=S, device=cuda)
             for commit in m2_commits(torch, C, G, cuda):
                 mem.add_batch(sh, *commit)
             same_reads(f"M2 C={C} S={S}", store_reads(sh, qs, ks=(1,)),
                        want)
-            if S in topk4:
-                same_reads(f"M2 C={C} S={S} k=4",
-                           store_reads(sh, qs, ks=(4,), top1=False), want4)
+            same_reads(f"M2 C={C} S={S} k=4",
+                       store_reads(sh, qs, ks=(4,), top1=False), want4)
             rows[f"S={S}"] = (
                 timed(lambda: mem.query_batch(sh, qs), f"m2_{C}_s{S}_top1"),
                 timed(lambda: mem.query_topk_batch(sh, qs, 4),
-                      f"m2_{C}_s{S}_top4") if S in topk4 else None)
+                      f"m2_{C}_s{S}_top4"))
             del sh
             torch.cuda.empty_cache()
         del single
         torch.cuda.empty_cache()
         timing_line = "; ".join(
             f"{k}: top-1 {show(t1[0])} ({show(t1[1])}), top-4 "
-            + (f"{show(t4[0])} ({show(t4[1])})" if t4 else
-               "refused by the kernel") for k, (t1, t4) in rows.items())
+            f"{show(t4[0])} ({show(t4[1])})" for k, (t1, t4) in rows.items())
         log(f"M2 C={C} x 384 (commits of {M2_COMMIT}), S in {M2_SHARDS}: "
-            f"every read (query, query_batch B={M2_B}, top-k k=1, both "
-            f"views) == the single-device store's bit for bit; top-k k=4 "
-            f"== the single-device "
-            f"{'kernel' if 0 in topk4 else 'plain version on the card'} at "
-            f"S in {tuple(x for x in topk4 if x)}"
+            f"every read (query, query_batch B={M2_B}, top-k k=1 and 4, both "
+            f"views) == the single-device store's bit for bit"
             f"{'; ' + ', '.join(line) if line else ''}. ms a read, CUDA "
             f"events (device): {timing_line}; bound {b:.4f} ms (the rows "
             f"and mask at 3.35 TB/s)")
         results[f"M2_C{C}"] = dict(bound_ms=b, **{
-            k: dict(top1_ms=t1[0], top1_device_ms=t1[1],
-                    top4_ms=t4[0] if t4 else None,
-                    top4_device_ms=t4[1] if t4 else None)
+            k: dict(top1_ms=t1[0], top1_device_ms=t1[1], top4_ms=t4[0],
+                    top4_device_ms=t4[1])
             for k, (t1, t4) in rows.items()})
 
     # M3: I2's setting on a 4-shard backing, over the same commits as I2
@@ -2648,11 +2977,7 @@ def _trace_summary(torch, tag, fn, n_steps):
         wall_ms = (time.perf_counter() - t0) * 1e3
     counted = sum(ops.launch_counts().values())
     events = device_events(prof, path)
-    busy, end = 0.0, float("-inf")
-    for s, t in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
-        if t > end:
-            busy += t - max(s, end)
-            end = t
+    busy = union_us(events)
     by_name, by_kind = {}, {}
     for e in events:
         name = e["name"].removeprefix("void ")[:70]
@@ -2863,6 +3188,7 @@ def main() -> int:
     m_counts, _ = phase_m(torch, ops, tiers, r_results, i_results)
     del i_results
     l_counts, _ = phase_l(torch, ops)
+    z_counts, _ = phase_z(torch, ops)
     s_counts, s_results = phase_s(torch, ops)
     a4_counts, _ = phase_a4(torch, ops, s_results["system"])
     f5_counts, _ = phase_f5(torch, ops, s_results["system"])
@@ -2876,7 +3202,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(c.get(name, 0)
                             for c in (r_counts, i_counts, a_counts, f_counts,
-                                      m_counts, l_counts, s_counts,
+                                      m_counts, l_counts, z_counts, s_counts,
                                       a4_counts, f5_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

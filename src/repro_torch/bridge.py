@@ -44,19 +44,31 @@ def _check(tree, shapes, path="") -> None:
                              f"{tuple(tree[k].shape)} != {want}")
 
 
-def _layer_shapes(n, D, H, KV, hd, Fd, norm: bool, gated: bool) -> dict:
+def _layer_shapes(n, D, H, KV, hd, Fd, norm: bool, gated: bool,
+                  experts: int = 0) -> dict:
+    """A stack of n attention layers; with ``experts`` > 0 their FFN is a
+    MoE (``moe``: the f32 router and the experts' weights) in place of
+    the MLP."""
     ln = {"scale": (n, D)} if norm else {}
-    mlp = {"w_up": (n, D, Fd), "w_down": (n, Fd, D)}
-    if gated:
-        mlp["w_gate"] = (n, D, Fd)
-    return {"ln1": ln, "ln2": dict(ln), "mlp": mlp,
+    if experts:
+        ffn = {"moe": {"router": (n, D, experts),
+                       "w_gate": (n, experts, D, Fd),
+                       "w_up": (n, experts, D, Fd),
+                       "w_down": (n, experts, Fd, D)}}
+    else:
+        mlp = {"w_up": (n, D, Fd), "w_down": (n, Fd, D)}
+        if gated:
+            mlp["w_gate"] = (n, D, Fd)
+        ffn = {"mlp": mlp}
+    return {"ln1": ln, "ln2": dict(ln), **ffn,
             "attn": {"wq": (n, D, H, hd), "wk": (n, D, KV, hd),
                      "wv": (n, D, KV, hd), "wo": (n, H, hd, D)}}
 
 
 def lm_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
-    """A dense LM's JAX parameters (numpy leaves) as the port's."""
-    if cfg.family != "dense":
+    """A dense or moe LM's JAX parameters (numpy leaves) as the port's,
+    its head tied to the embedding or its own ``unembed``."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"bridge: family {cfg.family!r}")
     norm = cfg.norm_type != "nonparametric_ln"
     shapes: dict[str, Any] = {
@@ -64,7 +76,9 @@ def lm_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         "final_norm": {"scale": (cfg.d_model,)} if norm else {},
         "layers": _layer_shapes(cfg.num_layers, cfg.d_model, cfg.num_heads,
                                 cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
-                                norm, cfg.gated_mlp),
+                                norm, cfg.gated_mlp,
+                                cfg.num_experts if cfg.family == "moe"
+                                else 0),
     }
     if not cfg.tie_embeddings:
         shapes["unembed"] = (cfg.vocab_size, cfg.d_model)

@@ -10,8 +10,8 @@ Analog mapping (paper → this framework):
   encoder, 384-d output, cosine indexing.
 
 The cost asymmetry the router exploits is real: STRONG is ~9× the FLOPs
-of WEAK per token. At production scale any zoo architecture slots into
-either tier (``llama3_8b`` is the one the port serves at full width).
+of WEAK per token. At production scale any zoo architecture
+(``repro_torch.configs.get(...)``) slots into either tier.
 """
 import dataclasses
 

@@ -60,7 +60,7 @@ _SIGNATURES = {
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P),
     "decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _I, _I, _I, _P, _P, _P),
+                             _I, _F, _I, _I, _I, _P, _P, _P),
 }
 
 

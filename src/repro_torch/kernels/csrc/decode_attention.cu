@@ -8,6 +8,16 @@
 // NEG_INF and a denominator clamped at 1e-37. cache_len is (B,) here (the
 // wrapper broadcasts a scalar), like ref.decode_attention.
 //
+// Ring mode (the ring KV cache of src/repro/models/model.py, a separate
+// instantiation; the prefix read above is unchanged): the cache holds the
+// last M positions, position p in slot p % M, so slot i holds absolute
+// position cache_len - 1 - ((cache_len - 1 - i) mod M), masked where that
+// is negative (not yet written). The valid positions are
+// [max(0, cache_len - min(window or M, M)), cache_len): the chunks tile
+// those absolute positions as they tile a prefix, and each key row is
+// loaded from slot p % M. The range is at most M long, so it wraps at most
+// once and no chunk reads a slot twice.
+//
 // Bound on the H100: the valid cache bytes over HBM (at llama3-8b B=1,
 // cache 4096: 16.8 MB, 5 us), and at the main path's small caches (a few
 // hundred keys, ~1.2 MB a layer) the latency of one launch. A CTA per
@@ -68,7 +78,24 @@ struct DecodeLayout {
                 "the merge's (m, l) table lives in the tile ring");
 };
 
-template <typename T, int HD>
+// Rows [r0, r0 + ROWS) of a ring of M slots (position p in slot p % M)
+// into shared rows, as stage_rows; rows >= n are zero-filled. n - r0 <= M,
+// so a row's slot is (r0 mod M) + r less M at most once.
+template <typename T, int HD, int LD, int ROWS, int NT>
+__device__ __forceinline__ void stage_ring_rows(T* dst, const T* __restrict__ src, size_t stride,
+                                                int r0, int n, int M) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = HD / E;
+  const int base = r0 % M;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * E;
+    const bool ok = r0 + r < n;
+    const int slot = base + r >= M ? base + r - M : base + r;
+    cp_async16(dst + r * LD + c, ok ? src + (size_t)slot * stride + c : src, ok);
+  }
+}
+
+template <typename T, int HD, bool RING>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ out, const int* __restrict__ cache_len, int M, int H, int KV,
@@ -92,8 +119,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const T* vb = v + ((size_t)b * M * KV + kvh) * HD;
   auto stage = [&](int t, int r0, int n) {  // tile t (rows r0.., < n) into its stage
     T* dst = ring + (t % STAGES) * 2 * L::TILE;
-    stage_rows<T, HD, LD, TK, NT>(dst, kb, kv_stride, r0, n);
-    stage_rows<T, HD, LD, TK, NT>(dst + L::TILE, vb, kv_stride, r0, n);
+    if constexpr (RING) {
+      stage_ring_rows<T, HD, LD, TK, NT>(dst, kb, kv_stride, r0, n, M);
+      stage_ring_rows<T, HD, LD, TK, NT>(dst + L::TILE, vb, kv_stride, r0, n, M);
+    } else {
+      stage_rows<T, HD, LD, TK, NT>(dst, kb, kv_stride, r0, n);
+      stage_rows<T, HD, LD, TK, NT>(dst + L::TILE, vb, kv_stride, r0, n);
+    }
   };
 
   const T* qg = q + ((size_t)b * H + kvh * G) * HD;  // the group's G x HD queries
@@ -110,8 +142,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 
   const int cl = cache_len[b];
-  const int hi = min(M, cl);
-  const int lo = window > 0 ? max(0, cl - window) : 0;
+  // the valid positions [lo, hi): a prefix of the slots, or in a ring the
+  // last min(window or M, M) positions
+  const int hi = RING ? cl : min(M, cl);
+  const int lo = RING ? max(0, cl - (window > 0 ? min(window, M) : M))
+                      : (window > 0 ? max(0, cl - window) : 0);
   const int nv = hi > lo ? (hi - lo + chunk - 1) / chunk : 0;  // chunks holding keys
   T* o = out + ((size_t)b * H + kvh * G) * HD;                  // the group's G x HD outputs
   if (c >= nv) {
@@ -272,22 +307,23 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   if (threadIdx.x == 0) tickets[bk] = 0u;  // every chunk has taken its ticket
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool RING>
 cudaError_t launch_hd(const T* q, const T* k, const T* v, T* out, const int* cache_len, int B,
                       int M, int H, int KV, int window, float scale, int chunk, int n_chunks,
                       float* ws, float* ws_ml, unsigned int* tickets, cudaStream_t stream) {
   constexpr size_t bytes = DecodeLayout<T, HD>::BYTES;
-  const cudaError_t attr = allow_smem<decode_kernel<T, HD>>(bytes);
+  const cudaError_t attr = allow_smem<decode_kernel<T, HD, RING>>(bytes);
   if (attr != cudaSuccess) return attr;
-  decode_kernel<T, HD><<<dim3(n_chunks, KV, B), NT, bytes, stream>>>(
+  decode_kernel<T, HD, RING><<<dim3(n_chunks, KV, B), NT, bytes, stream>>>(
       q, k, v, out, cache_len, M, H, KV, window, scale, chunk, ws, ws_ml, tickets);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, const int* cache_len,
-                   int B, int M, int H, int KV, int hd, int window, float scale, int chunk,
-                   int n_chunks, float* ws, unsigned int* tickets, cudaStream_t stream) {
+                   int B, int M, int H, int KV, int hd, int window, int ring, float scale,
+                   int chunk, int n_chunks, float* ws, unsigned int* tickets,
+                   cudaStream_t stream) {
   if (B < 1 || M < 1 || KV < 1 || H % KV || H / KV > MAX_G || chunk < 1 || n_chunks < 1 ||
       n_chunks > MAX_CHUNKS)
     return cudaErrorInvalidValue;
@@ -298,10 +334,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
   T* oo = static_cast<T*>(out);
   float* ws_ml = ws ? ws + (size_t)B * KV * n_chunks * (H / KV) * hd : nullptr;
   switch (hd) {
-#define REPRO_DECODE(HD)                                                                \
-  case HD:                                                                              \
-    return launch_hd<T, HD>(qq, kk, vv, oo, cache_len, B, M, H, KV, window, scale, chunk, \
-                            n_chunks, ws, ws_ml, tickets, stream);
+#define REPRO_DECODE(HD)                                                                    \
+  case HD:                                                                                  \
+    return ring ? launch_hd<T, HD, true>(qq, kk, vv, oo, cache_len, B, M, H, KV, window,    \
+                                         scale, chunk, n_chunks, ws, ws_ml, tickets, stream)  \
+                : launch_hd<T, HD, false>(qq, kk, vv, oo, cache_len, B, M, H, KV, window,   \
+                                          scale, chunk, n_chunks, ws, ws_ml, tickets, stream);
     REPRO_DECODE(32)
     REPRO_DECODE(64)
     REPRO_DECODE(128)
@@ -313,6 +351,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. cache_len is (B,) int32 on the device.
+// ring: 0 = the cache is a prefix of positions, 1 = a ring of M slots.
 // The valid range of each row is cut into chunks of `chunk` keys, n_chunks
 // (<= 64) CTAs per (kv head, batch row); n_chunks * chunk must cover
 // min(M, window) (M without a window). With n_chunks > 1, ws holds
@@ -321,13 +360,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
 // q, k, v and out are contiguous and 16-byte aligned.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                     const int* cache_len, int B, int M, int H, int KV, int hd,
-                                    int window, float scale, int dtype, int chunk, int n_chunks,
-                                    float* ws, unsigned int* tickets, cudaStream_t stream) {
+                                    int window, int ring, float scale, int dtype, int chunk,
+                                    int n_chunks, float* ws, unsigned int* tickets,
+                                    cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float>(q, k, v, out, cache_len, B, M, H, KV, hd, window, scale, chunk,
+    return launch<float>(q, k, v, out, cache_len, B, M, H, KV, hd, window, ring, scale, chunk,
                          n_chunks, ws, tickets, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, cache_len, B, M, H, KV, hd, window, scale,
+    return launch<__nv_bfloat16>(q, k, v, out, cache_len, B, M, H, KV, hd, window, ring, scale,
                                  chunk, n_chunks, ws, tickets, stream);
   return cudaErrorInvalidValue;
 }

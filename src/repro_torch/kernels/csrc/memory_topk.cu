@@ -19,10 +19,12 @@
 //     warp, unpacked by the last CTA (a best sim of -0.0 comes back as
 //     +0.0, equal under IEEE compares);
 //   * k >= 2 takes its list mode: each tile's sorted top-k by selection
-//     rounds in shared memory, then the last CTA merges the tiles' lists by
-//     k rounds over their heads. The top-k of a union is the top-k of the
-//     parts' top-ks under a strict total order, so the result equals one
-//     global selection. Consumed and absent candidates are -inf (never
+//     rounds in shared memory, then merges by k rounds over list heads:
+//     each CTA walking several tiles merges its own tiles' lists, and the
+//     last CTA merges those (or, with one tile a CTA, the tiles' lists).
+//     The top-k of a union is the top-k of the parts' top-ks under a strict
+//     total order, so the result equals one global selection, at any store
+//     size. Consumed and absent candidates are -inf (never
 //     selected while a real row is left); the reference consumes to -3.0,
 //     which differs only if a view holds sims below -3.0 (impossible for
 //     the store's unit-or-zero rows and unit queries).
@@ -46,8 +48,10 @@ cudaError_t run(const ScanArgs& a, cudaStream_t stream) {
 // mem (Cp, Ep) f32; qs (B, E) f32 with E % 4 == 0 and E <= Ep; both
 // 16-byte aligned; mask (Cp,) int32. state holds B + 1 64-bit words, zero
 // before the first launch (B keys, then the ticket); every launch leaves
-// them zero. For k >= 2, cand_s/cand_r hold `capacity` entries, at least
-// B * k a tile (tiles of 32 rows or more) and 3 more. Outputs (B, k).
+// them zero. For k >= 2, cand_s/cand_r hold `capacity` entries: B * k a
+// tile (32-row tiles below WIDE_MIN_ROWS rows, else 256), and when the
+// grid is smaller than the tile count B * k a CTA more from the next
+// 4-entry boundary, and 3 spare. Outputs (B, k).
 extern "C" int memory_topk_batch_padded(const float* mem, const float* qs, const int* mask,
                                         int Cp, int Ep, int E, int B, int k, int required,
                                         unsigned long long* state, float* cand_s, int* cand_r,

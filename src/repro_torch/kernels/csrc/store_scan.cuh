@@ -65,11 +65,20 @@
 //         to shared memory and each warp takes k rounds (max, lowest row,
 //         consume to -inf) for its queries at once, writing the tile's top-k
 //         to the (B, tiles, k) workspace; a tile with fewer real rows than
-//         k yields absent (-inf, 2^30) entries. The last CTA merges the
-//         sorted tile lists of a query by k rounds over their heads (as
-//         many queries' lists as fit staged in shared memory at once, one
-//         L2 round trip a batch). Any k that check_k admits runs in this
-//         one launch.
+//         k yields absent (-inf, 2^30) entries. The sorted lists are then
+//         merged by k rounds over their heads, in two rounds when a CTA
+//         walks several tiles (tiles > grid): each CTA first merges its own
+//         tiles' lists, read from L2, into one list a query (a (B, grid, k)
+//         workspace after the tile lists), and the last CTA merges the
+//         grid's lists; with one tile a CTA the last CTA merges the tile
+//         lists themselves. The last CTA stages as many queries' lists as
+//         fit in shared memory at once (one L2 round trip a batch). A merge
+//         keeps a head a list and warp-query in shared memory, so the two
+//         rounds take stores of any size a card holds (a CTA's own heads
+//         are ceil(tiles / grid) of them: 1504 tiles a CTA, 50.8M rows, at
+//         E = 384 and B = 32), where one merge of every tile list refused
+//         past ~385K rows. Any k that check_k admits runs in this one
+//         launch.
 #pragma once
 
 #include "attention_common.cuh"
@@ -108,7 +117,7 @@ struct Cfg {
   static_assert(R * (KC / 4) % THREADS == 0, "chunk copies must split evenly");
   static_assert(KC % SUM_BLOCK == 0 && STAGES >= 2, "bad ring");
   static_assert(LR * LQ == 32, "a warp is 32 lanes");
-  static_assert(R >= 32, "the wrapper sizes top-k's tile lists for tiles of 32 rows or more");
+  static_assert(R == 32 || R == 256, "the wrapper sizes top-k's lists for these tiles");
 };
 
 // wide: 256-row tiles (C >= WIDE_MIN_ROWS); narrow: 32-row tiles, the
@@ -226,18 +235,28 @@ __device__ __forceinline__ void tile_lists(const ScanArgs& a, const float* sims,
   }
 }
 
-// k rounds over the heads of the sorted tile lists (k entries each) of
-// queries 0..nb-1 (sims s, rows r, n = tiles * k a query; in shared memory,
-// or in L2 with GLOBAL): each round takes a query's best head, (sim desc,
-// row asc), and advances its list. A warp takes QPW queries at once.
+// nl sorted lists of k entries a query: query q's list t starts at entry
+// q * stride + (first + t * step) * k of s and r.
+struct Lists {
+  const float* s;
+  const int* r;
+  size_t stride;
+  int nl, first, step;
+};
+
+// k rounds over the heads of the sorted lists of queries 0..nb-1 (in
+// shared memory, or in L2 with GLOBAL): each round takes a query's best
+// head, (sim desc, row asc), writes it to (os, orow) at q * ostride + j,
+// and advances its list. A warp takes QPW queries at once; `head` holds
+// WARPS x QPW x nl ints.
 template <class C, bool GLOBAL>
-__device__ __forceinline__ void merge_batch(const ScanArgs& a, const float* s, const int* r,
-                                            int nb, int b0, int* head) {
+__device__ __forceinline__ void merge_batch(const Lists& l, int k, int nb, float* os, int* orow,
+                                            size_t ostride, int* head) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tiles = a.tiles, k = a.k, n = tiles * k;
-  head += warp * C::QPW * tiles;
+  const int nl = l.nl;
+  head += warp * C::QPW * nl;
   for (int c0 = 0; c0 < nb; c0 += C::WARPS * C::QPW) {
-    for (int t = lane; t < C::QPW * tiles; t += 32) head[t] = 0;
+    for (int t = lane; t < C::QPW * nl; t += 32) head[t] = 0;
     __syncwarp();
     for (int j = 0; j < k; ++j) {
       float bs[C::QPW];
@@ -249,22 +268,22 @@ __device__ __forceinline__ void merge_batch(const ScanArgs& a, const float* s, c
         bt[qi] = -1;
         const int bb = c0 + warp + qi * C::WARPS;
         if (bb >= nb) continue;
-        for (int t = lane; t < tiles; t += 32) {
-          const int p = head[qi * tiles + t];
+        for (int t = lane; t < nl; t += 32) {
+          const int p = head[qi * nl + t];
           if (p >= k) continue;
-          const size_t i = (size_t)bb * n + t * k + p;
-          const float hs = GLOBAL ? __ldcg(s + i) : s[i];
-          const int hr = GLOBAL ? __ldcg(r + i) : r[i];
+          const size_t i = (size_t)bb * l.stride + (size_t)(l.first + t * l.step) * k + p;
+          const float hs = GLOBAL ? __ldcg(l.s + i) : l.s[i];
+          const int hr = GLOBAL ? __ldcg(l.r + i) : l.r[i];
           if (better(hs, hr, bs[qi], br[qi])) { bs[qi] = hs; br[qi] = hr; bt[qi] = t; }
         }
       }
       for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
         for (int qi = 0; qi < C::QPW; ++qi) {
-          const float os = __shfl_xor_sync(0xffffffffu, bs[qi], off);
-          const int orow = __shfl_xor_sync(0xffffffffu, br[qi], off);
-          const int ot = __shfl_xor_sync(0xffffffffu, bt[qi], off);
-          if (better(os, orow, bs[qi], br[qi])) { bs[qi] = os; br[qi] = orow; bt[qi] = ot; }
+          const float o_s = __shfl_xor_sync(0xffffffffu, bs[qi], off);
+          const int o_r = __shfl_xor_sync(0xffffffffu, br[qi], off);
+          const int o_t = __shfl_xor_sync(0xffffffffu, bt[qi], off);
+          if (better(o_s, o_r, bs[qi], br[qi])) { bs[qi] = o_s; br[qi] = o_r; bt[qi] = o_t; }
         }
       }
       if (lane == 0) {
@@ -272,9 +291,9 @@ __device__ __forceinline__ void merge_batch(const ScanArgs& a, const float* s, c
         for (int qi = 0; qi < C::QPW; ++qi) {
           const int bb = c0 + warp + qi * C::WARPS;
           if (bb >= nb) continue;
-          a.out_s[(size_t)(b0 + bb) * k + j] = bs[qi];
-          a.out_r[(size_t)(b0 + bb) * k + j] = br[qi];
-          if (bt[qi] >= 0) ++head[qi * tiles + bt[qi]];
+          os[(size_t)bb * ostride + j] = bs[qi];
+          orow[(size_t)bb * ostride + j] = br[qi];
+          if (bt[qi] >= 0) ++head[qi * nl + bt[qi]];
         }
       }
       __syncwarp();
@@ -282,26 +301,53 @@ __device__ __forceinline__ void merge_batch(const ScanArgs& a, const float* s, c
   }
 }
 
-// The last CTA: merge each query's sorted tile lists. As many queries'
-// lists as fit are staged in shared memory at once by the whole CTA (16-byte
-// cp.async, all in flight together: one L2 round trip a batch), then
-// merged; lists too long for shared memory are merged from L2.
+// Where list mode's lists are: the (B, tiles, k) tile lists, and when the
+// merge takes two rounds (tiles > grid) the (B, grid, k) CTA lists after
+// them, from a 4-entry boundary (the last CTA copies them 16 bytes at a
+// time).
+__host__ __device__ __forceinline__ bool two_rounds(int tiles, int grid) { return tiles > grid; }
+__host__ __device__ __forceinline__ size_t cta_lists_at(int B, int tiles, int k) {
+  return ((size_t)B * tiles * k + 3) / 4 * 4;
+}
+
+// Round one of a two-round merge, by every CTA after its walk over a query
+// group's tiles: its own tiles' lists (tiles blockIdx.x, + gridDim.x, ...,
+// read from L2) into one list a query of the group, at its slot of the CTA
+// lists. The whole shared memory is idle here (the next group restages
+// it), so it holds the heads.
 template <class C>
-__device__ __forceinline__ void merge_lists(const ScanArgs& a, float* smem) {
-  const int n = a.tiles * a.k;
+__device__ __forceinline__ void merge_own_tiles(const ScanArgs& a, float* smem, int q0, int nq) {
+  __syncthreads();  // every tile list of the group is written; the ring and sims are idle
+  const int mine = (a.tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const size_t stride = (size_t)a.tiles * a.k, base = (size_t)q0 * stride;
+  const size_t out = cta_lists_at(a.B, a.tiles, a.k) + ((size_t)q0 * gridDim.x + blockIdx.x) * a.k;
+  const Lists l{a.cand_s + base, a.cand_r + base, stride, mine, (int)blockIdx.x, (int)gridDim.x};
+  merge_batch<C, true>(l, a.k, nq, a.cand_s + out, a.cand_r + out, (size_t)gridDim.x * a.k,
+                       reinterpret_cast<int*>(smem));
+}
+
+// The last CTA: merge each query's sorted lists (nl of them, at entry `at`
+// of the workspace, n = nl * k a query) into the output. As many queries'
+// lists as fit are staged in shared memory at once by the whole CTA
+// (16-byte cp.async, all in flight together: one L2 round trip a batch),
+// then merged; lists too long for shared memory are merged from L2.
+template <class C>
+__device__ __forceinline__ void merge_lists(const ScanArgs& a, float* smem, size_t at, int nl) {
+  const int k = a.k, n = nl * k;
   int* head = reinterpret_cast<int*>(smem);  // WARPS x QPW lists' heads
-  float* stage = smem + (C::WARPS * C::QPW * a.tiles + 3) / 4 * 4;
+  float* stage = smem + (C::WARPS * C::QPW * nl + 3) / 4 * 4;
   const int room = a.smem_floats - (int)(stage - smem) - 16;  // 4 floats of slack a side
   const int batch = room / (2 * n);
   if (batch < 1) {
-    merge_batch<C, true>(a, a.cand_s, a.cand_r, a.B, 0, head);
+    merge_batch<C, true>(Lists{a.cand_s + at, a.cand_r + at, (size_t)n, nl, 0, 1}, k, a.B,
+                         a.out_s, a.out_r, k, head);
     return;
   }
   for (int b0 = 0; b0 < a.B; b0 += batch) {
-    // queries b0 .. b0 + nb - 1: entries [o, o + total) of the lists, copied
-    // 16 bytes at a time from the 4-float boundary below o
+    // queries b0 .. b0 + nb - 1: entries [o, o + total) of the workspace,
+    // copied 16 bytes at a time from the 4-float boundary below o
     const int nb = min(batch, a.B - b0), total = nb * n;
-    const size_t o = (size_t)b0 * n, o4 = o & ~(size_t)3;
+    const size_t o = at + (size_t)b0 * n, o4 = o & ~(size_t)3;
     const int quads = (int)((o + total + 3 - o4) / 4), span = quads * 4;
     float* ss = stage;
     int* sr = reinterpret_cast<int*>(stage + span);
@@ -313,7 +359,8 @@ __device__ __forceinline__ void merge_lists(const ScanArgs& a, float* smem) {
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    merge_batch<C, false>(a, ss + (o - o4), sr + (o - o4), nb, b0, head);
+    merge_batch<C, false>(Lists{ss + (o - o4), sr + (o - o4), (size_t)n, nl, 0, 1}, k, nb,
+                          a.out_s + (size_t)b0 * k, a.out_r + (size_t)b0 * k, k, head);
   }
 }
 
@@ -430,7 +477,9 @@ __device__ __forceinline__ void scan_body(const ScanArgs& a) {
           for (int q = 0; q < C::QT; ++q) dot[r][q] = 0.f;
       }
     }
-    if constexpr (!LISTS) {
+    if constexpr (LISTS) {
+      if (two_rounds(a.tiles, gridDim.x)) merge_own_tiles<C>(a, smem, q0, nq);
+    } else {
 #pragma unroll
       for (int q = 0; q < C::QT; ++q) {
         unsigned long long key = best[q] > seed ? best[q] : seed;
@@ -452,7 +501,10 @@ __device__ __forceinline__ void scan_body(const ScanArgs& a) {
   if (!last) return;
   __threadfence();
   if constexpr (LISTS) {
-    merge_lists<C>(a, smem);
+    if (two_rounds(a.tiles, gridDim.x))
+      merge_lists<C>(a, smem, cta_lists_at(a.B, a.tiles, a.k), gridDim.x);
+    else
+      merge_lists<C>(a, smem, 0, a.tiles);
   } else {
     for (int b = threadIdx.x; b < a.B; b += C::THREADS) {
       const unsigned long long key = atomicExch(a.keys + b, 0ull);
@@ -510,15 +562,24 @@ cudaError_t launch(ScanArgs a, cudaStream_t stream) {
   const size_t floats = launch_floats<C, LISTS>(a.Ep), bytes = floats * sizeof(float);
   a.tiles = (a.Cp + C::R - 1) / C::R;
   if (bytes > MAX_DYN_SMEM) return cudaErrorInvalidValue;
-  if (LISTS && ((size_t)a.tiles * C::WARPS * C::QPW > floats ||  // the merge's heads
-                (long long)a.B * a.tiles * a.k + 3 > (long long)a.capacity))
-    return cudaErrorInvalidValue;
   int resident = 0;
   const cudaError_t err = prepare<Kernel>(C::THREADS, bytes, &resident);
   if (err != cudaSuccess) return err;
+  const int grid = std::min(a.tiles, resident);
+  if (LISTS) {
+    // a merge's heads (a CTA's own tiles, then the grid's lists, or the
+    // tiles' lists in one round) and the workspace's entries
+    const bool two = two_rounds(a.tiles, grid);
+    const size_t heads = (size_t)C::WARPS * C::QPW * (two ? (a.tiles + grid - 1) / grid : 0);
+    const size_t last = (size_t)C::WARPS * C::QPW * (two ? grid : a.tiles);
+    const size_t need = two ? cta_lists_at(a.B, a.tiles, a.k) + (size_t)a.B * grid * a.k
+                            : (size_t)a.B * a.tiles * a.k;
+    if (heads > floats || last > floats || need + 3 > (size_t)a.capacity)
+      return cudaErrorInvalidValue;
+  }
   a.smem_floats = (int)floats;
   void* args[] = {&a};
-  const cudaError_t launched = cudaLaunchKernel((const void*)Kernel, dim3(std::min(a.tiles, resident)),
+  const cudaError_t launched = cudaLaunchKernel((const void*)Kernel, dim3(grid),
                                                 dim3(C::THREADS), args, bytes, stream);
   return launched != cudaSuccess ? launched : cudaGetLastError();
 }

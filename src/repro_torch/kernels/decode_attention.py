@@ -9,6 +9,11 @@ as in the JAX reference oracle (the Pallas kernel took a scalar only).
 The kernel splits each row's cache over several CTAs (split-KV) and merges
 their partials in the same launch; :func:`split` picks the chunk, and the
 wrapper keeps one workspace and ticket buffer per (stream, shape).
+
+``ring=True`` reads the ring KV cache of ``src/repro/models/model.py``:
+the M slots hold the last M positions, position p in slot p % M, so slot
+i holds absolute position ``cache_len - 1 - ((cache_len - 1 - i) mod M)``
+(negative: not yet written, masked), as the JAX model's ``kpos``.
 """
 from __future__ import annotations
 
@@ -35,10 +40,12 @@ def _lengths(cache_len, B: int, device) -> torch.Tensor:
 
 
 def decode_attention_plain(q, k, v, cache_len, *, window: int = 0,
-                           scale: float | None = None):
+                           scale: float | None = None, ring: bool = False):
     """q (B, H, hd); k, v (B, M, KV, hd); cache_len () or (B,): positions
     < cache_len are valid, and with ``window`` > 0 only those
-    >= cache_len - window. f32 math, output in q's dtype."""
+    >= cache_len - window. Slot i holds position i, or with ``ring`` the
+    position ``cache_len - 1 - ((cache_len - 1 - i) mod M)`` (valid when
+    >= 0). f32 math, output in q's dtype."""
     B, H, hd = q.shape
     M, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -47,7 +54,11 @@ def decode_attention_plain(q, k, v, cache_len, *, window: int = 0,
     scores = torch.einsum("bkgh,bmkh->bkgm", qg, k.float())
     cl = _lengths(cache_len, B, q.device)[:, None]
     kpos = torch.arange(M, device=q.device)[None, :]
-    mask = kpos < cl
+    if ring:
+        kpos = (cl - 1) - torch.remainder(cl - 1 - kpos, M)
+        mask = kpos >= 0
+    else:
+        mask = kpos < cl
     if window > 0:
         mask = mask & (kpos >= cl - window)
     scores = torch.where(mask[:, None, None, :], scores,
@@ -89,7 +100,7 @@ def _workspace(device, stream: int, B: int, KV: int, G: int, hd: int,
 
 
 def decode_attention_cuda(q, k, v, cache_len, *, window: int = 0,
-                          scale: float | None = None):
+                          scale: float | None = None, ring: bool = False):
     """Launch ``csrc/decode_attention.cu``; same contract as
     :func:`decode_attention_plain`. A cache_len of 0 yields zeros (the
     kernel loads no key), where the plain version averages all M rows."""
@@ -114,7 +125,7 @@ def decode_attention_cuda(q, k, v, cache_len, *, window: int = 0,
     out = torch.empty_like(q)
     err = _build.lib().decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        cl.data_ptr(), B, M, H, KV, hd, int(window), float(s),
+        cl.data_ptr(), B, M, H, KV, hd, int(window), int(ring), float(s),
         _DTYPES[q.dtype], chunk, n_chunks,
         None if ws is None else ws.data_ptr(),
         None if tickets is None else tickets.data_ptr(), stream)

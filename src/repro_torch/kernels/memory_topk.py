@@ -362,12 +362,16 @@ def memory_topk_batch_padded_plain(mem, qs, mask, k: int,
 #: the store kernels' workspaces, each allocated once per (kernel, device,
 #: stream, shape): the state words (here B keys, then the ticket; the IVF
 #: kernels keep their keys and tickets in them too), which every launch
-#: leaves at zero, and top-k's tile lists, room for B x k entries a
-#: tile of the finest tiling the kernel uses (32 rows) and 4 spare (the
-#: kernel reads them back 16 bytes at a time)
+#: leaves at zero, and top-k's lists: B x k entries a tile of the kernel's
+#: tiling, as many again for its CTAs' lists (a CTA walks at least one
+#: tile) from the next 4-entry boundary, and 4 spare (the kernel reads them
+#: back 16 bytes at a time)
 _states: dict = {}
 _lists: dict = {}
-_FINEST_TILE = 32
+#: csrc/store_scan.cuh: stores of WIDE_MIN_ROWS rows or more take 256-row
+#: tiles, smaller ones 32-row tiles
+_WIDE_MIN_ROWS = 16384
+_TILE_ROWS = (32, 256)
 
 
 def _check_cuda(mem, qs, mask, name: str) -> None:
@@ -408,7 +412,8 @@ def _state(kind: str, dev, stream: int, B: int) -> torch.Tensor:
 def _tile_lists(dev, stream: int, B: int, cp: int, k: int):
     key = (dev, stream, B, cp, k)
     if key not in _lists:
-        n = B * -(-cp // _FINEST_TILE) * k + 4
+        tiles = -(-cp // _TILE_ROWS[cp >= _WIDE_MIN_ROWS])
+        n = 2 * _round_up(B * tiles * k, 4) + 4
         _lists[key] = (torch.empty(n, dtype=torch.float32, device=dev),
                        torch.empty(n, dtype=torch.int32, device=dev))
     return _lists[key]

@@ -146,12 +146,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k, v, cache_len, *, window: int = 0,
-                     scale: float | None = None):
+                     scale: float | None = None, ring: bool = False):
+    """One query token against the cache; ``ring`` reads a ring of
+    slots (:mod:`repro_torch.kernels.decode_attention`)."""
     if _on_cuda(q, k, v, cache_len):
         return _da.decode_attention_cuda(q, k, v, cache_len, window=window,
-                                         scale=scale)
+                                         scale=scale, ring=ring)
     return _da.decode_attention_plain(q, k, v, cache_len, window=window,
-                                      scale=scale)
+                                      scale=scale, ring=ring)
 
 
 def ivf_route_batch_padded(cent, qs, cmask, n_probe: int,

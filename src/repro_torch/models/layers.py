@@ -1,4 +1,4 @@
-"""Dense transformer layers, the counterpart of the dense subset of
+"""Transformer layers, the counterpart of the dense and MoE layers of
 ``src/repro/models/layers.py``.
 
 Conventions kept from the JAX package, so parameters carry across as they
@@ -203,3 +203,117 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
 def unembed(embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits (B, S, V) in f32 from x (B, S, D) and a (V, D) table."""
     return _matmul_f32(x, embedding.T)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k token choice, per-row capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(gen, d_model: int, d_ff: int, num_experts: int, dtype,
+             device) -> Params:
+    """One MoE layer's weights (``layers.moe_init``): the f32 router
+    (D, E) and the experts' ``w_gate``/``w_up`` (E, D, F) and ``w_down``
+    (E, F, D) in ``dtype``, fan-in normal."""
+    D, F_, E = d_model, d_ff, num_experts
+    return {"router": dense_init(gen, (D, E), 0, torch.float32, device),
+            "w_gate": dense_init(gen, (E, D, F_), 1, dtype, device),
+            "w_up": dense_init(gen, (E, D, F_), 1, dtype, device),
+            "w_down": dense_init(gen, (E, F_, D), 1, dtype, device)}
+
+
+def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, N, D) @ w (E, D, F) -> (E, N, F) f32, per expert: the batched
+    :func:`_matmul_f32` (``preferred_element_type=f32``)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.bmm(x, w)
+    if x.device.type == "cuda":
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
+
+
+def _top_k_lowest_first(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest, ties to the
+    lower index (a stable descending sort; ``torch.topk`` leaves the order
+    of ties unspecified)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(params: Params, x: torch.Tensor, k: int,
+              capacity_factor: float):
+    """The routing half of :func:`moe`: the f32 router's softmax, its top
+    k (ties to the lower expert), the gates renormalised over the k, the
+    Switch aux loss; each (token, slot) takes the next place of its
+    expert's buffer in the row, in (S, k) order, and past the capacity
+    ``max(1, int(cf * k * S / E))`` it is dropped (gate 0). Returns
+    (gate_vals (B, S, k) f32, expert_idx (B, S, k), pos (B, S, k), keep
+    (B, S, k) bool, capacity, aux)."""
+    B, S, _ = x.shape
+    E = params["router"].shape[1]
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)   # (B, S, E)
+    gate_vals, expert_idx = _top_k_lowest_first(probs, k)         # (B, S, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(expert_idx, E).float().sum(2).mean(dim=(0, 1))
+    aux = E * (me * ce).sum()
+
+    capacity = max(1, int(capacity_factor * k * S / E))
+    flat = F.one_hot(expert_idx, E).reshape(B, S * k, E)
+    pos = ((flat.cumsum(1) - flat) * flat).sum(-1).reshape(B, S, k)
+    keep = pos < capacity
+    return (gate_vals * keep.to(gate_vals.dtype), expert_idx, pos, keep,
+            capacity, aux)
+
+
+def moe(params: Params, x: torch.Tensor, *, experts_per_token: int,
+        capacity_factor: float = 1.25, dispatch: str = "scatter"):
+    """Top-k token-choice MoE with per-row capacity, ``layers.moe`` of the
+    JAX package: returns (output (B, S, D) in x's dtype, the Switch
+    load-balance aux loss, f32 scalar). Routing is :func:`moe_route`.
+
+    ``scatter`` (the default) writes the kept tokens into a (B, E, C + 1,
+    D) buffer whose last place takes the dropped ones and is sliced off,
+    and gathers the outputs back by (expert, place); ``dense`` dispatches
+    and combines with one-hot einsums. The expert products accumulate in
+    f32 and are cast to x's dtype where JAX casts them; these are large
+    plain products, so they stay batched matmuls."""
+    B, S, D = x.shape
+    E = params["w_gate"].shape[0]
+    k = experts_per_token
+    gate_vals, expert_idx, pos, keep, capacity, aux = moe_route(
+        params, x, k, capacity_factor)
+
+    if dispatch == "dense":
+        pos_oh = F.one_hot(torch.where(keep, pos, capacity), capacity + 1
+                           )[..., :capacity].float()              # (B,S,k,C)
+        oh = F.one_hot(expert_idx, E).float()
+        disp = torch.einsum("bske,bskc->bsec", oh, pos_oh)
+        comb = torch.einsum("bske,bskc,bsk->bsec", oh, pos_oh, gate_vals)
+        expert_in = torch.einsum("bsec,bsd->becd", disp,
+                                 x.float()).to(x.dtype)
+    else:
+        safe_pos = torch.where(keep, pos, capacity)
+        bidx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, k)
+        buf = torch.zeros((B, E, capacity + 1, D), dtype=x.dtype,
+                          device=x.device)
+        buf = buf.index_put((bidx, expert_idx, safe_pos),
+                            x[:, :, None, :].expand(B, S, k, D),
+                            accumulate=True)
+        expert_in = buf[:, :, :capacity]                          # (B,E,C,D)
+
+    xe = expert_in.transpose(0, 1).reshape(E, B * capacity, D)
+    gate = _bmm_f32(xe, params["w_gate"])
+    up = _bmm_f32(xe, params["w_up"])
+    h = (F.silu(gate) * up).to(x.dtype)
+    expert_out = _bmm_f32(h, params["w_down"]).to(x.dtype).reshape(
+        E, B, capacity, D).transpose(0, 1)                        # (B,E,C,D)
+
+    if dispatch == "dense":
+        out = torch.einsum("bsec,becd->bsd", comb, expert_out.float())
+    else:
+        gathered = expert_out[bidx, expert_idx,
+                              safe_pos.clamp(max=capacity - 1)]   # (B,S,k,D)
+        out = (gathered.float() * gate_vals[..., None]).sum(2)
+    return out.to(x.dtype), aux

@@ -367,6 +367,10 @@ class _WorkerHandle:
         self.ready = threading.Event()
         self.alive = False
         self.fail_reason: str | None = None   # why its replica failed
+        self.death_reason: str | None = None  # as its tickets were told
+        # a worker that died before it was ready has failed a ticket: one
+        # was in flight at its death, or was submitted to its dead slot
+        self.failure_seen = False
         self.pid: int | None = None
         self.epoch: int | None = None  # last commit epoch the worker
         #                                reported (via heartbeat)
@@ -603,7 +607,23 @@ class ProcessServingFabric(ServingFabric):
                         if self._handles[j].alive:
                             replica = j
                             break
-                    if not self._handles[replica].alive:
+                    dead = self._handles[replica]
+                    if not dead.alive and not dead.ready.is_set() and \
+                            not dead.failure_seen:
+                        # its replica could not be built, and no ticket
+                        # has failed on it yet: this one fails as it
+                        # would have had it reached the worker before the
+                        # failure was seen, so the counts do not depend on
+                        # which came first; the next submit respawns
+                        dead.failure_seen = True
+                        ticket = Ticket(replica=replica)
+                        self._tickets.append(ticket)
+                        self._redispatch_locked(
+                            replica, ticket,
+                            (nows, prompts, guide_requests, keys, embs),
+                            dead.death_reason)
+                        return ticket
+                    if not dead.alive:
                         self._handles[replica] = self._spawn_locked(
                             replica, None)
                         self.restarts += 1
@@ -743,7 +763,9 @@ class ProcessServingFabric(ServingFabric):
         authoritative store, redispatch in-flight work under the budget,
         then reap the corpse outside the lock. A worker that never became
         ready (its replica could not be built) is not respawned: its
-        tickets go to a live worker within the budget, or fail."""
+        tickets go to a live worker within the budget, or fail, and so
+        does the first ticket submitted to its slot if none was in flight
+        (:meth:`submit`)."""
         with self._dispatch_lock:
             if not handle.alive or self._closed:
                 return
@@ -754,6 +776,8 @@ class ProcessServingFabric(ServingFabric):
             inflight = sorted(handle.inflight.items())
             handle.inflight = {}
             reason = handle.fail_reason or reason
+            handle.death_reason = reason
+            handle.failure_seen = bool(inflight)
             if handle.ready.is_set():
                 # fresh worker, no fault plan: a spent kill spec must not
                 # re-fire on the replacement
@@ -763,24 +787,28 @@ class ProcessServingFabric(ServingFabric):
             else:
                 self.startup_failures += 1
             for _, (ticket, payload) in inflight:
-                target = self._pick_live_locked(exclude=i)
-                if ticket.redispatches < self.cfg.max_redispatch and \
-                        self._handles[target].alive:
-                    ticket.redispatches += 1
-                    self.redispatches += 1
-                    ticket.replica = target
-                    self._dispatch_locked(self._handles[target], ticket,
-                                          payload)
-                else:
-                    ticket.error = WorkerDied(
-                        f"worker {i} died ({reason}); no live worker "
-                        f"within the redispatch budget "
-                        f"({self.cfg.max_redispatch})")
-                    ticket._done.set()
+                self._redispatch_locked(i, ticket, payload, reason)
         if handle.proc is not None and handle.proc.is_alive():
             handle.proc.kill()
             handle.proc.join(timeout=5)
         handle.channel.close()
+
+    def _redispatch_locked(self, i: int, ticket: Ticket, payload,
+                           reason: str) -> None:
+        """A ticket of dead worker ``i``: to a live worker within the
+        redispatch budget, else failed with :class:`WorkerDied`."""
+        target = self._pick_live_locked(exclude=i)
+        if ticket.redispatches < self.cfg.max_redispatch and \
+                self._handles[target].alive:
+            ticket.redispatches += 1
+            self.redispatches += 1
+            ticket.replica = target
+            self._dispatch_locked(self._handles[target], ticket, payload)
+        else:
+            ticket.error = WorkerDied(
+                f"worker {i} died ({reason}); no live worker within the "
+                f"redispatch budget ({self.cfg.max_redispatch})")
+            ticket._done.set()
 
     def _pick_live_locked(self, exclude: int) -> int:
         n = self.n_workers

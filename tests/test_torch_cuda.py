@@ -161,6 +161,46 @@ def test_cuda_top1_scan_edges(cuda, C, B):
               tmt.memory_top1_batch_padded_plain(memp, qs, maskp, req))
 
 
+def _card_store(cuda, C, seed):
+    """A padded C x 384 store made on the card from a seed: unit rows, 70%
+    valid; rows C // 3 and C - 1 repeat row 7, ties across tiles, CTAs and
+    the merge's two rounds."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    Cp, Ep = tmt.padded_rows(C), tmt.padded_lanes(384)
+    memp = torch.zeros((Cp, Ep), dtype=torch.float32, device=cuda)
+    for i in range(0, C, 1 << 18):
+        n = min(1 << 18, C - i)
+        x = torch.randn((n, 384), generator=gen, device=cuda)
+        memp[i:i + n, :384] = x / x.norm(dim=1, keepdim=True)
+    memp[C // 3] = memp[C - 1] = memp[7]
+    maskp = torch.zeros((Cp, 1), dtype=torch.int32, device=cuda)
+    maskp[:C, 0] = (torch.rand(C, generator=gen, device=cuda) < 0.7).to(
+        torch.int32) * tmt.MASK_VALID
+    maskp[7] = maskp[C // 3] = maskp[C - 1] = tmt.MASK_VALID
+    qs = torch.randn((32, 384), generator=gen, device=cuda)
+    qs /= qs.norm(dim=1, keepdim=True)
+    qs[0] = memp[7, :384]
+    return memp, maskp, qs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [400_000, 4_194_304])
+def test_cuda_topk_large_single_store_matches_plain(cuda, C):
+    """Top-k (k = 4) over one store past the ~385K rows where the list
+    mode's single merge refused (a CTA walks many tiles, so the merge takes
+    two rounds), at B = 1 and 32, bit for bit the plain version's; k = 1
+    and 16 beside it."""
+    memp, maskp, qs = _card_store(cuda, C, C)
+    for B, k in ((32, 4), (1, 4), (8, 16), (32, 1)):
+        got = tmt.memory_topk_batch_padded_cuda(memp, qs[:B], maskp, k)
+        _same(got, tmt.memory_topk_batch_padded_plain(memp, qs[:B], maskp,
+                                                      k))
+        if k == 4:
+            assert got[1][0, :3].tolist() == [7, C // 3, C - 1]
+    del memp, maskp
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [136, 4096, 65536])
 def test_cuda_scan_empty_view(cuda, C):
@@ -458,6 +498,47 @@ def test_cuda_decode_empty_cache_and_reused_workspace(rng, cuda, dtype):
             else:
                 assert (got[b] - want[b]).abs().max().item() <= \
                     ATTN_TOL[dtype]
+
+
+def _ring_lengths(M):
+    """Cache lengths before, at and after the ring's first wrap, and
+    several wraps on."""
+    return [1, M // 2, M - 1, M, M + 1, M + 37, 2 * M - 1, 5 * M + 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [64, 256, 4096])
+@pytest.mark.parametrize("window_of", ["none", "inside", "beyond"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 3, 7])
+def test_cuda_decode_ring_matches_plain(rng, cuda, M, window_of, dtype, hd,
+                                        G):
+    """The ring read (slot p % M holds position p) against the plain ring
+    version, one cache length for both rows and one per row, windows of 0,
+    under M and over M; and equal to the prefix read of the same keys laid
+    out by position, where those fit a prefix cache."""
+    KV = 2
+    window = {"none": 0, "inside": M // 4 + 3, "beyond": M + 50}[window_of]
+    q, k, v = _attn_inputs(rng, cuda, dtype, (2, KV * G, hd),
+                           (2, M, KV, hd), (2, M, KV, hd))
+    lens = _ring_lengths(M)
+    for cls in [[n, n] for n in lens] + [[lens[1], lens[5]],
+                                         [lens[-1], lens[0]]]:
+        cl = torch.tensor(cls, dtype=torch.int32, device=cuda)
+        want = da.decode_attention_plain(q, k, v, cl, window=window,
+                                         ring=True).float()
+        got = da.decode_attention_cuda(q, k, v, cl, window=window,
+                                       ring=True).float()
+        assert (got - want).abs().max().item() <= ATTN_TOL[dtype], cls
+        n = max(cls)
+        if n <= 2 * M:      # the same keys in a prefix cache of n slots
+            pos = torch.arange(n, device=cuda)
+            kp, vp = k[:, pos % M].contiguous(), v[:, pos % M].contiguous()
+            flat = da.decode_attention_cuda(q, kp, vp, cl,
+                                            window=min(window or M, M)
+                                            ).float()
+            assert (got - flat).abs().max().item() <= ATTN_TOL[dtype], cls
 
 
 @pytest.mark.cuda

@@ -46,7 +46,12 @@ def test_no_jax_or_reference_package_in_sys_modules():
               "repro_torch.serving.procfabric",
               "repro_torch.serving.scheduler",
               "repro_torch.serving.loadgen",
-              "repro_torch.core.memory_sharded"):
+              "repro_torch.core.memory_sharded",
+              *(f"repro_torch.configs.{m}" for m in (
+                  "olmo_1b", "gemma3_27b", "deepseek_coder_33b",
+                  "olmoe_1b_7b", "granite_moe_3b_a800m", "mamba2_2p7b",
+                  "recurrentgemma_2b", "phi3_vision_4p2b",
+                  "whisper_medium"))):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

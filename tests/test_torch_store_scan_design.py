@@ -12,7 +12,9 @@ themselves run only on the card (``tests/test_torch_cuda.py``):
   (-2.0, row 0), unpacked by the last CTA;
 * list mode (top-k, k >= 2): each tile's sorted top-k by selection rounds
   that consume to -inf, absent (-inf, 2**30) entries past a tile's real
-  rows, and the last CTA's merge by k rounds over the tile lists' heads;
+  rows, and the merge by k rounds over list heads: the last CTA's over
+  the tile lists, or with more tiles than CTAs each CTA's over its own
+  tiles' lists first and the last CTA's over the CTAs' lists;
 * the summation order: per (row, query), FMA chains over blocks of 32
   lanes, their partial sums added in lane order (the plain versions' own
   order since the plain reads sum as the card does).
@@ -185,21 +187,11 @@ def _select_rounds(v, k, nreal):
     return out_s, out_r
 
 
-def list_scan(sims, k):
-    """List mode: every tile's sorted top-k, then the last CTA's merge by k
-    rounds over the heads of the tiles' lists."""
-    Cp, B = sims.shape
-    R = _tile_rows(Cp)
-    tiles = -(-Cp // R)
-    ls = torch.full((tiles, k, B), NEG_INF)
-    lr = torch.full((tiles, k, B), SENTINEL, dtype=torch.int64)
-    for t in range(tiles):
-        v = torch.full((R, B), NEG_INF)
-        nreal = min(R, Cp - t * R)
-        v[:nreal] = sims[t * R:t * R + nreal]
-        s, r = _select_rounds(v, k, nreal)
-        ls[t], lr[t] = s, torch.where(r < SENTINEL, r + t * R, r)
-    head = torch.zeros((tiles, B), dtype=torch.int64)
+def _merge_heads(ls, lr, k):
+    """k rounds over the heads of sorted lists ls/lr (n, k, B): each round
+    the best head (sim desc, row asc) of each query, its list advanced."""
+    n, _, B = ls.shape
+    head = torch.zeros((n, B), dtype=torch.int64)
     cols = torch.arange(B)
     out_s = torch.empty((B, k))
     out_r = torch.empty((B, k), dtype=torch.int64)
@@ -212,9 +204,34 @@ def list_scan(sims, k):
         best = hs.max(0).values
         row = torch.where(hs == best[None], hr, 2 ** 40).min(0).values
         t = torch.where((hs == best[None]) & (hr == row[None]),
-                        torch.arange(tiles)[:, None], tiles).min(0).values
+                        torch.arange(n)[:, None], n).min(0).values
         out_s[:, j], out_r[:, j] = best, row
         head[t, cols] += 1
+    return out_s, out_r
+
+
+def list_scan(sims, k, grid=H100_SMS):
+    """List mode: every tile's sorted top-k, then the merge by k rounds
+    over list heads: with more tiles than CTAs, each CTA first merges its
+    own tiles' lists (round one) and the last CTA the CTAs' lists; else
+    the last CTA merges the tiles' lists."""
+    Cp, B = sims.shape
+    R = _tile_rows(Cp)
+    tiles = -(-Cp // R)
+    ls = torch.full((tiles, k, B), NEG_INF)
+    lr = torch.full((tiles, k, B), SENTINEL, dtype=torch.int64)
+    for t in range(tiles):
+        v = torch.full((R, B), NEG_INF)
+        nreal = min(R, Cp - t * R)
+        v[:nreal] = sims[t * R:t * R + nreal]
+        s, r = _select_rounds(v, k, nreal)
+        ls[t], lr[t] = s, torch.where(r < SENTINEL, r + t * R, r)
+    if tiles > grid:
+        own = [_merge_heads(ls[c::grid], lr[c::grid], k)
+               for c in range(grid)]
+        ls = torch.stack([s.T for s, _ in own])
+        lr = torch.stack([r.T for _, r in own])
+    out_s, out_r = _merge_heads(ls, lr, k)
     return out_s, out_r.to(torch.int32)
 
 
@@ -275,6 +292,22 @@ def test_topk_scan_matches_plain_and_oracle(C, B, k):
         assert got[1][1, :2].tolist() == [3, 17]
 
 
+@pytest.mark.parametrize("k", [2, 4, 16])
+@pytest.mark.parametrize("C,B", [(1000, 8), (4096, 33), (20000, 8)])
+def test_topk_two_round_merge_matches_plain_and_oracle(C, B, k):
+    """A grid of 3 CTAs over 32 to 128 tiles: each CTA merges its own
+    tiles' lists, then the last CTA the three CTA lists (the kernel's
+    merge past one tile a CTA, as on a store of millions of rows)."""
+    memp, qs, maskp = _store(C, B, seed=2)
+    got = list_scan(_masked_sims(memp, qs, maskp, tmt.MASK_VALID), k, 3)
+    want = tmt.memory_topk_batch_padded_plain(memp, qs, maskp, k)
+    oracle = topk_ref(jnp.asarray(memp.numpy()), jnp.asarray(qs.numpy()),
+                      jnp.asarray(maskp.numpy()), k, tmt.MASK_VALID)
+    _same(got, want, oracle)
+    if k >= 4:
+        assert got[1][0, :3].tolist() == [C // 3, C // 2, C - 1]
+
+
 @pytest.mark.parametrize("k", [1, 4, 16])
 def test_empty_view(k):
     """No row carries the required bits: top-1 gives the seed (-2.0, 0),
@@ -294,12 +327,14 @@ def test_empty_view(k):
 
 @pytest.mark.parametrize("C", [136, 1000, 16383, 16384, 65536])
 def test_tile_lists_workspace_covers_the_tiling(C):
-    """The wrapper's tile-list workspace holds B x k entries for every tile
-    the kernel cuts the store into, and the 3 spare entries its 16-byte
-    reads may touch."""
+    """The wrapper's list workspace holds B x k entries for every tile the
+    kernel cuts the store into, from a 4-entry boundary as many again for
+    the CTAs' lists of a two-round merge (a CTA walks one tile or more),
+    and the 3 spare entries its 16-byte reads may touch."""
     try:
         s, r = tmt._tile_lists(torch.device("cpu"), 0, 8, C, 16)
-        need = 8 * -(-C // _tile_rows(C)) * 16 + 3
+        per = 8 * -(-C // _tile_rows(C)) * 16
+        need = -(-per // 4) * 4 + per + 3
         assert s.numel() >= need and r.numel() >= need
         assert s.dtype == torch.float32 and r.dtype == torch.int32
     finally:
