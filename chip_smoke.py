@@ -18,7 +18,11 @@ Phases, each of which fails the run on any error:
   (``torch.profiler``) and time with the L2 flushed; and the split-KV
   decode's own cases (caches of 1024 and 4096, cache_len per row, an
   empty cache, and the ring read: a 4096-slot ring past its wrap, with
-  and without a window);
+  and without a window); the attention kernels at every Phase Z model's
+  shapes (head widths 64, 96, 128 and 256, whisper's non-causal encoder
+  over 1500 frames and its cross reads, f32 at 96 and 256); the ptxas
+  report of the attention kernels (registers and spills) after the
+  build;
 * R: ``MicrobatchRAR`` serving the ``rar_throughput`` workload (pool 64,
   2 passes, microbatch 8 and 32) on the card and on the CPU in the same
   process, with identical Outcome streams, FM calls and stores required
@@ -32,16 +36,22 @@ Phases, each of which fails the run on any error:
   agree in every step;
 * L: ``ServingEngine.generate_bucketed`` at the full width of llama3-8b
   (bf16, random weights from a seed) serving 8 mixed-length requests;
-* Z (after L): the model zoo's dense and moe families at full width, one
-  model at a time, freed between, random weights from a seed (bf16). Z1:
-  olmoe-1b-7b (16 layers, 64 experts top-8) and Z2: granite-moe-3b-a800m,
-  olmo-1b, gemma3-27b (one 1300-token prompt, past its 1024-token local
-  windows) and deepseek-coder-33b, each at full depth, serve prompts
-  through ``ServingEngine.generate_bucketed`` (ms/request, tokens/s, peak
-  memory, the card's busy share under the profiler; flash and decode must
-  launch), and the kernel path's prefill and first decode-step logits are
-  held to ``forward`` (``layers.attention``) on the card within Z_TOL of
-  the largest logit, argmax equal where the top-2 margin exceeds it. Z3:
+* Z (after L): the model zoo at full width, one model at a time, freed
+  between, random weights from a seed (bf16). Z1: olmoe-1b-7b (16 layers,
+  64 experts top-8) and Z2: granite-moe-3b-a800m, olmo-1b, gemma3-27b (one
+  1300-token prompt, past its 1024-token local windows),
+  deepseek-coder-33b, mamba2-2.7b (prompts of 17 and 600 tokens: 600 pads
+  to three 256-token SSD chunks), recurrentgemma-2b (17, 130 and 2100
+  tokens, past its 2048-token window), phi-3-vision-4.2b (256 seeded
+  patch embeddings before each prompt) and whisper-medium (1500 seeded
+  frames for its encoder), each at full depth, serve prompts through
+  ``ServingEngine.generate_bucketed`` (``generate`` with the frontend
+  input for phi-3-vision and whisper) (ms/request, tokens/s, peak memory,
+  the card's busy share under the profiler; flash and decode must launch,
+  and neither in mamba2-2.7b, whose path has no attention), and the
+  kernel path's prefill and first decode-step logits are held to
+  ``forward`` (``layers.attention``) on the card within Z_TOL of the
+  largest logit, argmax equal where the top-2 margin exceeds it. Z3:
   the ring KV cache, olmoe-1b-7b with a 256-slot ring over 300 decode
   steps and gemma3-27b cut to 6 layers (one 5:1 group) with a 1024-slot
   ring over 1100, B = 2, every step's logits equal to the full cache's at
@@ -179,12 +189,19 @@ M2_COMMIT, M2_B = 65536, 32      # M2: rows a commit, queries a read
 M3_SHARDS = 4                    # M3: I2's store on a sharded backing
 Z_SEED, Z_MAX_NEW = 5, 8         # Z1/Z2: weights' seed, tokens a request
 # Z1/Z2: (arch, prompt lengths, depth cut or None), one at a time, freed
-# between; gemma3-27b's 1300 tokens run past its 1024-token local windows
+# between; gemma3-27b's 1300 tokens run past its 1024-token local windows,
+# mamba2-2.7b's 600 pad to three 256-token chunks, recurrentgemma-2b's
+# 2100 run past its 2048-token window; phi-3-vision-4.2b's prompts follow
+# its 256 patch embeddings, whisper-medium's go with 1500 frames
 Z_MODELS = (("olmoe-1b-7b", (17, 130), None),
             ("granite-moe-3b-a800m", (17, 130), None),
             ("olmo-1b", (17, 130), None),
             ("gemma3-27b", (1300,), None),
-            ("deepseek-coder-33b", (17, 130), None))
+            ("deepseek-coder-33b", (17, 130), None),
+            ("mamba2-2.7b", (17, 600), None),
+            ("recurrentgemma-2b", (17, 130, 2100), None),
+            ("phi-3-vision-4.2b", (17, 130), None),
+            ("whisper-medium", (17, 130), None))
 # Z1/Z2: the kernel path's logits within Z_TOL x the largest reference
 # logit of the training path's (both bf16 on the card; PERF.md, PR 21)
 Z_TOL = 0.05
@@ -574,11 +591,14 @@ def phase_k(torch):
 
     # -- attention at the tiers', the embedder's and llama3-8b's shapes ---
     def attn_case(tag, B, Sq, H, KV, hd, dtype, window=0, causal=True,
-                  kv_len=None):
-        g = torch.Generator(device=dev).manual_seed(Sq * 1000 + H)
+                  kv_len=None, Sk=None, timed=False):
+        """``Sk`` keys (default Sq), the queries aligned to their end;
+        ``timed`` (and llama3-8b) adds the device and L2-cold times."""
+        Sk = Sq if Sk is None else Sk
+        g = torch.Generator(device=dev).manual_seed(Sq * 1000 + Sk + H)
         q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
-        k = torch.randn((B, Sq, KV, hd), generator=g, device=dev).to(dtype)
-        v = torch.randn((B, Sq, KV, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
         kl = None if kv_len is None else torch.full(
             (B,), kv_len, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, window=window, kv_len=kl)
@@ -588,28 +608,27 @@ def phase_k(torch):
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         if not err <= tol:
-            raise AssertionError(f"flash {tag} Sq={Sq}: err {err} > {tol}")
+            raise AssertionError(f"flash {tag} Sq={Sq} Sk={Sk}: err {err} > "
+                                 f"{tol}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        mask = None
-        if window or kl is not None or not causal:
-            pos = torch.arange(Sq, device=dev)
-            d = pos[:, None] - pos[None, :]
-            mask = torch.ones((Sq, Sq), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= d >= 0
-            if window:
-                mask &= d < window
-            if kl is not None:
-                mask = mask & (pos[None, :] < kv_len)
+        kpos = torch.arange(Sk, device=dev)
+        d = (torch.arange(Sq, device=dev) + (Sk - Sq))[:, None] - kpos[None]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= d >= 0
+        if window:
+            mask &= d < window
+        if kl is not None:
+            mask &= kpos[None, :] < kv_len
+        pairs = B * H * int(mask.sum())
+        # SDPA's own causal mask is aligned to the start, ours to the end
+        if not (window or kl is not None or (causal and Sq != Sk)):
+            mask = None
 
         def lib():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True)
-        pairs = B * H * sum(
-            sum(1 for j in range(Sq)
-                if (not causal or j <= i) and (not window or i - j < window)
-                and (kv_len is None or j < kv_len)) for i in range(Sq))
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
         es = q.element_size()
         b = bound((2 * q.numel() + 2 * k.numel()) * es, 4 * pairs * hd,
                   BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
@@ -618,19 +637,23 @@ def phase_k(torch):
             return fa.flash_attention_cuda(q, k, v, **kw)
         key = (f"{tag} B={B} Sq={Sq} H={H} KV={KV} hd={hd} "
                f"{str(dtype)[6:]} window={window} causal={causal}"
+               + ("" if Sk == Sq else f" Sk={Sk}")
                + ("" if kv_len is None else f" kv_len={kv_len}"))
-        extra = (card_times(f"flash_Sq{Sq}_w{window}", kernel, lib)
-                 if tag == "llama3-8b" else {})
+        extra = (card_times(f"flash_{tag.split()[0]}_Sq{Sq}_Sk{Sk}_w{window}"
+                            f"_hd{hd}", kernel, lib)
+                 if tag == "llama3-8b" or timed else {})
         record("flash_attention", key, err, time_ms(torch, kernel),
                time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
                                                                **kw)),
                time_ms(torch, lib), b, **extra)
 
-    def decode_case(tag, B, M, cl, H, KV, hd, dtype, window=0, ring=False):
+    def decode_case(tag, B, M, cl, H, KV, hd, dtype, window=0, ring=False,
+                    timed=False):
         """``cl``: one cache length for every row, or a list of B. It goes
         in as a (B,) int32 tensor already on the card, as the model passes
         it, so no timed call pays a host-to-device copy. ``ring``: the
-        cache is a ring of M slots (position p in slot p % M)."""
+        cache is a ring of M slots (position p in slot p % M). ``timed``
+        (and llama3-8b) adds the device and L2-cold times."""
         g = torch.Generator(device=dev).manual_seed(M * 1000 + H)
         q = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
         k = torch.randn((B, M, KV, hd), generator=g, device=dev).to(dtype)
@@ -682,9 +705,9 @@ def phase_k(torch):
         b = bound((2 * q.numel() + 2 * n * KV * hd) * es, 4 * H * n * hd,
                   BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
         shown = cl if isinstance(cl, int) else list(cl)
-        extra = (card_times(f"decode_M{M}_w{window}_B{B}"
-                            f"{'_ring' if ring else ''}", kernel, lib)
-                 if tag == "llama3-8b" else {})
+        extra = (card_times(f"decode_{tag.split()[0]}_M{M}_w{window}_B{B}"
+                            f"_hd{hd}{'_ring' if ring else ''}", kernel, lib)
+                 if tag == "llama3-8b" or timed else {})
         record("decode_attention",
                f"{tag} B={B} M={M} cache_len={shown} H={H} KV={KV} hd={hd} "
                f"{str(dtype)[6:]} window={window}"
@@ -745,20 +768,42 @@ def phase_k(torch):
     decode_case("olmoe-1b-7b", 2, 256, [300, 200], 16, 16, 128, bf16,
                 ring=True)
     # the zoo at the shapes Phase Z gives the kernels: each Z1/Z2 model's
-    # heads, head width and dtype, its prompts' prefills and their first
-    # decode step's cache, at each window its layers have; each Z3 ring
-    # at its slots and the window its layers pass (a layer's own, else
-    # decode_window), with rows before, at and past the wrap
+    # heads, head width and dtype, its prompts' prefills (after the vlm's
+    # patches) and their first decode step's cache, at each window its
+    # layers have; whisper's encoder over its frames and its cross reads
+    # (the prefill's queries against every frame, non-causal, and a decode
+    # step's over all of them); each Z3 ring at its slots and the window
+    # its layers pass (a layer's own, else decode_window), with rows
+    # before, at and past the wrap. The widest prompt of each new head
+    # width, and whisper's encoder and cross reads, carry device times.
     from repro_torch import configs
     for arch, lengths, _ in Z_MODELS:
         cfg = configs.get(arch)
+        if cfg.family == "ssm":                 # no attention
+            continue
         shape = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                  getattr(torch, cfg.param_dtype))
-        for Sq in lengths:
+        extra = cfg.num_patches if cfg.family == "vlm" else 0
+        for n in lengths:
+            Sq = n + extra
+            timed = cfg.head_dim in (96, 256) and n == max(lengths)
             for window in sorted(set(cfg.layer_windows())):
-                attn_case(arch, 1, Sq, *shape, window=window)
+                attn_case(arch, 1, Sq, *shape, window=window, timed=timed)
                 decode_case(arch, 1, Sq + Z_MAX_NEW, Sq + 1, *shape,
-                            window=window)
+                            window=window, timed=timed)
+            if cfg.family == "audio":
+                attn_case(f"{arch} cross", 1, n, *shape, causal=False,
+                          Sk=cfg.encoder_frames, timed=n == max(lengths))
+        if cfg.family == "audio":
+            F_ = cfg.encoder_frames
+            attn_case(f"{arch} encoder", 1, F_, *shape, causal=False,
+                      timed=True)
+            decode_case(f"{arch} cross", 1, F_, F_, *shape, timed=True)
+    # f32 at the new widths (the kernels' f32 path; the zoo serves bf16)
+    attn_case("f32 hd96", 1, 273, 32, 32, 96, f32)
+    attn_case("f32 hd256", 1, 130, 10, 1, 256, f32, window=64)
+    decode_case("f32 hd96", 1, 282, 274, 32, 32, 96, f32)
+    decode_case("f32 hd256", 1, 139, 131, 10, 1, 256, f32)
     for arch, M, steps, B, _ in Z_RINGS:
         cfg = configs.get(arch)
         shape = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
@@ -1265,7 +1310,7 @@ def phase_l(torch, ops):
 
 
 # ---------------------------------------------------------------------------
-# Phase Z: the model zoo's dense and moe families at full width
+# Phase Z: the model zoo at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1319,18 +1364,34 @@ def z_logit_check(torch, tag, got, want):
                 argmax_same=int(same.sum()), rows=len(same))
 
 
+def z_front(cfg, rng):
+    """The family's frontend input for one request, seeded (standard
+    normal f32 at d_model, as ``tests/test_models.py`` makes it): the vlm's
+    patch embeddings or the audio family's frames; {} for the others."""
+    import numpy as np
+    n = {"vlm": cfg.num_patches, "audio": cfg.encoder_frames}.get(cfg.family)
+    if n is None:
+        return {}
+    key = "patch_embeds" if cfg.family == "vlm" else "frames"
+    return {key: rng.normal(size=(1, n, cfg.d_model)).astype(np.float32)}
+
+
 def z_model(torch, ops, arch, lengths, cut=None):
     """Z1/Z2 for one arch at full width (depth cut to ``cut`` layers if
-    given): random weights from a seed; ``ServingEngine.generate_bucketed``
-    on seeded prompts of ``lengths`` with Z_MAX_NEW new tokens, timed, its
-    kernel launches counted and its card busy share profiled; then, for
-    each prompt, the prefill's last logits against ``forward`` on the
-    prompt, and one decode step's against ``forward`` on the grown
-    sequence. A moe model routes with its own capacity factor in the
-    prefill check; its decode check runs at a capacity no token overflows
-    (E / k), since a forward over S + 1 tokens has another capacity than
-    the prefill over S and a decode step over 1, and drops other tokens.
-    Returns the launches of the serving run and the numbers."""
+    given): random weights from a seed; the engine on seeded prompts of
+    ``lengths`` with Z_MAX_NEW new tokens (``generate_bucketed``, or for a
+    family with a frontend input ``generate`` on each prompt with its
+    seeded patches or frames), timed, its kernel launches counted and its
+    card busy share profiled; then, for each prompt, the prefill's last
+    logits against ``forward`` on the prompt, and one decode step's
+    against ``forward`` on the grown sequence. A moe model routes with its
+    own capacity factor in the prefill check; its decode check runs at a
+    capacity no token overflows (E / k), since a forward over S + 1 tokens
+    has another capacity than the prefill over S and a decode step over 1,
+    and drops other tokens. Flash and decode must launch in the serving
+    run and in the checks, except for the ssm family, whose path must
+    launch neither. Returns the launches of the serving run and the
+    numbers."""
     import numpy as np
 
     from repro_torch import configs
@@ -1342,6 +1403,7 @@ def z_model(torch, ops, arch, lengths, cut=None):
     cfg = configs.get(arch)
     if cut is not None:
         cfg = dataclasses.replace(cfg, num_layers=cut)
+    attention = cfg.family != "ssm"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1349,25 +1411,44 @@ def z_model(torch, ops, arch, lengths, cut=None):
     torch.cuda.synchronize()
     weights = sum(t.numel() * t.element_size()
                   for t in leaves(params)) / 1e9
+    shape = {
+        "ssm": f", d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+               f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+               f"{cfg.ssm_chunk}",
+        "hybrid": f", blocks {''.join(cfg.block_pattern)}, d_rnn "
+                  f"{cfg.d_rnn}",
+        "vlm": f", {cfg.num_patches} patch embeddings",
+        "audio": f", {cfg.encoder_layers} encoder layers over "
+                 f"{cfg.encoder_frames} frames",
+        "moe": f", {cfg.num_experts} experts top-{cfg.experts_per_token}",
+    }.get(cfg.family, "")
     log(f"Z {cfg.name}: {cfg.family}, {cfg.num_layers} layers"
         f"{'' if cut is None else f' (depth cut from {configs.get(arch).num_layers})'}"
-        f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
-        f"of {cfg.head_dim}, vocab {cfg.vocab_size}"
-        + (f", {cfg.num_experts} experts top-{cfg.experts_per_token}"
-           if cfg.family == "moe" else "")
-        + f", windows {sorted(set(cfg.layer_windows()))}, "
+        f", d_model {cfg.d_model}"
+        + (f", {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}"
+           f", windows {sorted(set(cfg.layer_windows()))}" if attention
+           else "")
+        + f"{shape}, vocab {cfg.vocab_size}, "
         f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm_type}, "
         f"{cfg.param_dtype}: {weights:.2f} GB of random weights (seed "
         f"{Z_SEED}) in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(Z_SEED)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in lengths]
+    fronts = [z_front(cfg, rng) for _ in lengths]
     engine = ServingEngine(cfg, params)
-    engine.generate_bucketed(prompts[:1], 2)        # warm the allocator
+
+    def serve(k, max_new):
+        if not fronts[0]:
+            return engine.generate_bucketed(prompts[:k], max_new)
+        return np.concatenate([
+            engine.generate({"tokens": p[None], **f}, max_new).cpu().numpy()
+            for p, f in zip(prompts[:k], fronts[:k])])
+    serve(1, 2)                                     # warm the allocator
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    out = engine.generate_bucketed(prompts, Z_MAX_NEW)
+    out = serve(len(prompts), Z_MAX_NEW)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1375,41 +1456,48 @@ def z_model(torch, ops, arch, lengths, cut=None):
             out.max() >= cfg.vocab_size:
         raise AssertionError(f"Z {arch}: bad tokens {out.shape}")
     for k in ("flash_attention", "decode_attention"):
-        if counts[k] == 0:
+        if attention and counts[k] == 0:
             raise AssertionError(f"Z {arch} never launched {k}")
-    busy, wall = busy_ms(torch, lambda: engine.generate_bucketed(
-        prompts, Z_MAX_NEW), f"z_{arch}")
+        if not attention and counts[k]:
+            raise AssertionError(f"Z {arch}: an attention-free model "
+                                 f"launched {k} {counts[k]} times")
+    busy, wall = busy_ms(torch, lambda: serve(len(prompts), Z_MAX_NEW),
+                         f"z_{arch}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     toks = sum(lengths) + len(prompts) * Z_MAX_NEW
     res = dict(ms_per_request=dt * 1e3 / len(prompts), tokens_per_s=toks / dt,
                max_memory_gb=peak, weights_gb=weights,
                busy_share=None if busy is None else busy / wall, checks=[])
     log(f"Z {cfg.name} served {len(prompts)} requests (lengths "
-        f"{tuple(lengths)}, max_new {Z_MAX_NEW}) in {dt:.3f} s: "
+        f"{tuple(lengths)}{' after the patches' if cfg.family == 'vlm' else ''}"
+        f", max_new {Z_MAX_NEW}) in {dt:.3f} s: "
         f"{res['ms_per_request']:.1f} ms/request, {res['tokens_per_s']:.1f} "
         f"tokens/s (prompt + generated); max_memory_allocated {peak:.2f} GB; "
         f"card busy {'not measured' if busy is None else f'{busy:.1f} ms of a profiled {wall:.1f} ms ({100 * busy / wall:.1f}%)'}; "
         f"launches {counts}")
 
-    def check(ccfg, prompt, what):
+    def check(ccfg, prompt, front, what):
         t = torch.from_numpy(prompt).long().to(cuda)[None]
-        last, cache, pos = prefill(ccfg, params, {"tokens": t}, len(prompt) + 1)
+        fr = {k: torch.from_numpy(v).to(cuda) for k, v in front.items()}
+        extra = cfg.num_patches if cfg.family == "vlm" else 0
+        last, cache, pos = prefill(ccfg, params, {"tokens": t, **fr},
+                                   len(prompt) + extra + 1)
         if what == "prefill":
-            ref = forward(ccfg, params, {"tokens": t})[0][:, -1]
+            ref = forward(ccfg, params, {"tokens": t, **fr})[0][:, -1]
             return z_logit_check(torch, f"Z {arch} prefill S={len(prompt)}",
                                  last, ref)
         nxt = last.argmax(-1).to(torch.int32)
         step, _ = decode_step(ccfg, params, nxt, cache, pos)
         ref = forward(ccfg, params, {"tokens": torch.cat(
-            [t, nxt[:, None].long()], 1)})[0][:, -1]
+            [t, nxt[:, None].long()], 1), **fr})[0][:, -1]
         return z_logit_check(torch, f"Z {arch} decode pos={pos}", step, ref)
 
     nodrop = cfg if cfg.family != "moe" else dataclasses.replace(
         cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
     before = ops.launch_counts()
-    for prompt in prompts:
+    for prompt, front in zip(prompts, fronts):
         for what, ccfg in (("prefill", cfg), ("decode", nodrop)):
-            c = check(ccfg, prompt, what)
+            c = check(ccfg, prompt, front, what)
             res["checks"].append(dict(what=what, S=len(prompt), **c))
             log(f"Z {cfg.name} {what} check S={len(prompt)}"
                 f"{' (capacity E/k)' if ccfg is not cfg else ''}: max |diff| "
@@ -1417,10 +1505,11 @@ def z_model(torch, ops, arch, lengths, cut=None):
                 f"rel rms {c['rel_rms']:.3g}; argmax same in "
                 f"{c['argmax_same']}/{c['rows']}")
     after = ops.launch_counts()
-    if after["flash_attention"] == before["flash_attention"] or \
-            after["decode_attention"] == before["decode_attention"]:
+    ran = [after[k] != before[k]
+           for k in ("flash_attention", "decode_attention")]
+    if ran != [attention] * 2:
         raise AssertionError(f"Z {arch}: the checks' kernel path launched "
-                             f"no kernel")
+                             f"flash/decode {ran}, expected {attention}")
     del params, engine
     torch.cuda.empty_cache()
     return counts, res
@@ -3164,6 +3253,30 @@ SOURCES = {"memory_topk": ("src/repro_torch/kernels/csrc/memory_topk.cu",
                "src/repro/kernels/decode_attention.py:75")}
 
 
+def ptxas_summary(build) -> list[str]:
+    """One line a kernel instantiation of the two attention sources from
+    the build's ``-Xptxas -v`` log: registers, stack, spill stores and
+    loads."""
+    import re
+    pat = re.compile(r"(flash_kernel_bf16|flash_kernel_f32|decode_kernel)I"
+                     r"(13__nv_bfloat16|f)?Li(\d+)E(?:Lb(\d))?")
+    out = []
+    for src in ("flash_attention.cu", "decode_attention.cu"):
+        name, info = None, []
+        for line in build.ptxas_report(src) + ["Compiling entry"]:
+            if "Compiling entry" in line:
+                if name:
+                    out.append(f"{name}: {'; '.join(info)}")
+                m = pat.search(line)
+                name = m and (f"{m[1]}<{'bf16' if m[2] == '13__nv_bfloat16' else 'f32' if m[2] else ''}"
+                              f"{',' if m[2] else ''}{m[3]}"
+                              f"{',ring' if m[4] == '1' else ''}>")
+                info = []
+            elif name:
+                info.append(line)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3179,6 +3292,8 @@ def main() -> int:
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s for "
         f"{len(_build.SOURCES)} CUDA sources -> {_build.library_path()}")
+    for line in ptxas_summary(_build):
+        log(f"ptxas {line}")
 
     rows = phase_k(torch)
     r_counts, r_results, tiers = phase_r(torch, ops)

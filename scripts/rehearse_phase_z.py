@@ -1,5 +1,5 @@
 """Rehearse ``chip_smoke.py`` Phase K (every kernel case, the zoo's
-shapes included) and Phase Z (the model zoo's dense and moe families) on
+shapes included) and Phase Z (the model zoo, all ten archs) on
 the CPU, before spending time on the card.
 
     PYTHONPATH=src python scripts/rehearse_phase_z.py

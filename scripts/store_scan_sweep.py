@@ -95,9 +95,7 @@ def build_variants(build, csrc, names):
         for f in SOURCES:
             shutil.copy(csrc / f, d)
         lib = d / "libvariant.so"
-        flags = list(_build.FLAGS) + (["-Xptxas", "-v"] if name == "base"
-                                      else [])
-        cmd = [nvcc, *flags, "-shared", "-o", str(lib),
+        cmd = [nvcc, *_build.FLAGS, "-shared", "-o", str(lib),
                *(str(d / f) for f in SOURCES)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT))

@@ -65,23 +65,71 @@ def _layer_shapes(n, D, H, KV, hd, Fd, norm: bool, gated: bool,
                      "wv": (n, D, KV, hd), "wo": (n, H, hd, D)}}
 
 
+def _ssm_shapes(cfg: ModelConfig, norm: bool) -> dict:
+    """A stack of Mamba-2 layers (``ssm.mamba2_init`` per layer)."""
+    n, D, di = cfg.num_layers, cfg.d_model, cfg.d_inner
+    GN, H = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    C = di + 2 * GN
+    return {"ln1": {"scale": (n, D)} if norm else {},
+            "mixer": {"in_proj": (n, D, 2 * di + 2 * GN + H),
+                      "conv": {"w": (n, cfg.d_conv, C), "b": (n, C)},
+                      "A_log": (n, H), "D": (n, H), "dt_bias": (n, H),
+                      "norm": {"scale": (n, di)},
+                      "out_proj": (n, di, D)}}
+
+
+def _rglru_shapes(cfg: ModelConfig, n: int, norm: bool) -> dict:
+    """A stack of n RG-LRU layers: the recurrent block and a dense MLP."""
+    D, R, Fd = cfg.d_model, cfg.d_rnn, cfg.d_ff
+    ln = {"scale": (n, D)} if norm else {}
+    mlp = {"w_up": (n, D, Fd), "w_down": (n, Fd, D)}
+    if cfg.gated_mlp:
+        mlp["w_gate"] = (n, D, Fd)
+    return {"ln1": ln, "ln2": dict(ln), "mlp": mlp,
+            "rglru": {"w_gate_branch": (n, D, R), "w_rnn_branch": (n, D, R),
+                      "conv": {"w": (n, cfg.d_conv, R), "b": (n, R)},
+                      "w_a": (n, R, R), "w_i": (n, R, R), "b_a": (n, R),
+                      "b_i": (n, R), "lambda": (n, R),
+                      "out_proj": (n, R, D)}}
+
+
 def lm_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
-    """A dense or moe LM's JAX parameters (numpy leaves) as the port's,
-    its head tied to the embedding or its own ``unembed``."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"bridge: family {cfg.family!r}")
+    """An LM's JAX parameters (numpy leaves) as the port's, for every
+    family of the zoo, its head tied to the embedding or its own
+    ``unembed``."""
     norm = cfg.norm_type != "nonparametric_ln"
+    D = cfg.d_model
+
+    def attn_layers(n, experts=0):
+        return _layer_shapes(n, D, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim, cfg.d_ff, norm, cfg.gated_mlp,
+                             experts)
     shapes: dict[str, Any] = {
-        "embed": (cfg.vocab_size, cfg.d_model),
-        "final_norm": {"scale": (cfg.d_model,)} if norm else {},
-        "layers": _layer_shapes(cfg.num_layers, cfg.d_model, cfg.num_heads,
-                                cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
-                                norm, cfg.gated_mlp,
-                                cfg.num_experts if cfg.family == "moe"
-                                else 0),
+        "embed": (cfg.vocab_size, D),
+        "final_norm": {"scale": (D,)} if norm else {},
     }
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        shapes["layers"] = attn_layers(
+            cfg.num_layers, cfg.num_experts if cfg.family == "moe" else 0)
+    if cfg.family == "audio":
+        n, hd = cfg.num_layers, cfg.head_dim
+        shapes["layers"]["ln_cross"] = {"scale": (n, D)} if norm else {}
+        shapes["layers"]["cross_attn"] = {
+            "wq": (n, D, cfg.num_heads, hd), "wk": (n, D, cfg.num_kv_heads, hd),
+            "wv": (n, D, cfg.num_kv_heads, hd),
+            "wo": (n, cfg.num_heads, hd, D)}
+        shapes["enc_layers"] = attn_layers(cfg.encoder_layers)
+        shapes["enc_norm"] = {"scale": (D,)} if norm else {}
+    elif cfg.family == "ssm":
+        shapes["layers"] = _ssm_shapes(cfg, norm)
+    elif cfg.family == "hybrid":
+        blocks = cfg.layer_blocks()
+        shapes["attn_layers"] = attn_layers(blocks.count("a"))
+        shapes["rglru_layers"] = _rglru_shapes(cfg, blocks.count("r"), norm)
+    elif cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"bridge: family {cfg.family!r}")
     if not cfg.tie_embeddings:
-        shapes["unembed"] = (cfg.vocab_size, cfg.d_model)
+        shapes["unembed"] = (cfg.vocab_size, D)
     _check(tree, shapes)
     return _convert(tree, resolve_device(device))
 

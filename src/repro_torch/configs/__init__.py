@@ -4,9 +4,8 @@ Each module defines ``FULL`` (the assigned production config, exact dims
 from the pool spec) and ``SMOKE`` (a reduced same-family variant: ≤2 layers,
 d_model ≤ 512, ≤4 experts) used by CPU tests. ``get(name)`` /
 ``get_smoke(name)`` look them up; ``--arch <id>`` in the launchers resolves
-through here. The modules are copies of the JAX package's, as data: every
-id resolves, while the model runs the dense and moe families
-(:mod:`repro_torch.models.model` refuses the others).
+through here. The modules are copies of the JAX package's, as data; the
+model (:mod:`repro_torch.models.model`) runs every id's family.
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ SOURCES = ("memory_topk.cu", "memory_top1.cu", "ivf_route.cu",
            "ivf_scan.cu", "flash_attention.cu", "decode_attention.cu")
 HEADERS = ("attention_common.cuh", "store_scan.cuh", "ivf_common.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = ("-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC")
+FLAGS = ("-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 _lock = threading.Lock()
@@ -84,6 +84,28 @@ def library_path() -> Path:
     return BUILD_ROOT / _digest() / "librepro_kernels.so"
 
 
+#: nvcc's output of the last build (``-Xptxas -v``: registers, spills and
+#: shared memory of every kernel), beside the library
+PTXAS_LOG = "ptxas.log"
+
+
+def ptxas_report(source: str) -> list[str]:
+    """The ptxas lines of ``source`` (e.g. ``"flash_attention.cu"``) from
+    the build's log, each kernel's "Compiling entry function" line joined
+    with its "Used ... registers" and "spill" lines."""
+    path = library_path().parent / PTXAS_LOG
+    if not path.exists():
+        return []
+    lines, mine = [], False
+    for line in path.read_text().splitlines():
+        if line.startswith("== "):
+            mine = line[3:] == source
+        elif mine and ("Compiling entry" in line or "spill" in line or
+                       "Used" in line):
+            lines.append(line.split("ptxas info    :")[-1].strip())
+    return lines
+
+
 def build() -> Path:
     """Compile every source in parallel and link the library (skipped when
     the hashed library exists). Raises with nvcc's output on failure."""
@@ -99,13 +121,15 @@ def build() -> Path:
             cmd = [nvcc, *FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        errors = []
+        errors, logs = [], []
         for src, _, p in procs:
             log = p.communicate()[0].decode(errors="replace")
+            logs.append(f"== {src}\n{log}")
             if p.returncode:
                 errors.append(f"{src}:\n{log}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        (out.parent / PTXAS_LOG).write_text("\n".join(logs))
         tmp_lib = Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, ARCH, "-shared", "-o", str(tmp_lib),

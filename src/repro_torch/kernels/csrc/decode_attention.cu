@@ -38,6 +38,11 @@
 // over the tile). The arithmetic is f32 FMA: decode reads far more bytes
 // than it has operations for them, so tensor cores buy nothing.
 //
+// Head widths 32, 64, 96, 128 and 256 (phi-3-vision's 96, recurrentgemma-2b's
+// 256 with G = 10 query heads over one kv head): every split of a row is in
+// 4- or 8-element pieces, and the f32 ring at 256 takes 148 KB of shared
+// memory, opted in per device.
+//
 // Combine, in the same launch: each chunk writes its partial (m, l,
 // acc[hd]) in f32 to a workspace; the last CTA of a (kv head, batch row) to
 // take a ticket merges them, each weighted by exp(m_chunk - m_max), and
@@ -342,7 +347,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
                                           scale, chunk, n_chunks, ws, ws_ml, tickets, stream);
     REPRO_DECODE(32)
     REPRO_DECODE(64)
+    REPRO_DECODE(96)
     REPRO_DECODE(128)
+    REPRO_DECODE(256)
 #undef REPRO_DECODE
     default: return cudaErrorInvalidValue;
   }

@@ -37,6 +37,15 @@
 // only as the A operand of P V, where it enters as two bf16 terms (hi and
 // the remainder lo) so that P V keeps about 16 bits of P.
 //
+// Head widths 32, 64, 96, 128 and 256 (phi-3-vision attends at 96,
+// recurrentgemma-2b at 256). Up to 128 a warp keeps its Q fragments in
+// registers for the whole walk and loads a k-step's V fragments before its
+// MMAs; at 256 the O accumulators alone are 128 floats a thread, so the Q
+// fragments are reloaded from shared memory (where Q stays) at each k-step
+// and each V fragment feeds its MMAs as it is loaded, keeping the thread
+// under the 255 registers of __launch_bounds__(128). 256 also needs
+// 165 KB of shared memory (bf16) and 147 KB (f32), opted in per device.
+//
 // f32 path (the RAR tiers and the embedder, hd 32): no tensor cores and no
 // TF32 (card == CPU greedy tokens rest on IEEE f32). A CTA of 4 warps owns
 // 16 query rows, a warp a row at a time with a lane per key; 32-key K/V
@@ -126,6 +135,7 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = L::LD;
   constexpr int NS = TC_BK / 8;  // key n-tiles of S
   constexpr int NO = HD / 8;     // dim n-tiles of O
+  constexpr bool QREG = HD <= 128;  // Q fragments live in registers (else reloaded a k-step)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* KVs = Qs + L::Q;  // stage s: K at KVs + 2 s KV, V right after
@@ -160,7 +170,7 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[QREG ? HD / 16 : 1][4];
   const int row_a = q0 + warp * 16 + gid;  // this thread's rows: row_a, row_a + 8
 
   for (int t = t0; t < t1; ++t) {
@@ -168,7 +178,7 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<TC_STAGES - 1>();
     __syncthreads();
-    if (t == t0) {
+    if (QREG && t == t0) {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
@@ -185,14 +195,17 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t kf[NS / 2][4];
+      if constexpr (!QREG)
+        ldsm_x4(qf[0], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      const int qi = QREG ? kk : 0;
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np)
         ldsm_x4(kf[np], Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
                             ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
-        mma16816(s[2 * np], qf[kk], kf[np][0], kf[np][1]);
-        mma16816(s[2 * np + 1], qf[kk], kf[np][2], kf[np][3]);
+        mma16816(s[2 * np], qf[qi], kf[np][0], kf[np][1]);
+        mma16816(s[2 * np + 1], qf[qi], kf[np][2], kf[np][3]);
       }
     }
 
@@ -261,20 +274,31 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
       split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
       split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-      uint32_t vf[HD / 16][4];
+      const bf16* vrow = Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+      if constexpr (QREG) {
+        uint32_t vf[HD / 16][4];
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp)
-        ldsm_x4_trans(vf[dp], Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  dp * 16 + (lane >> 4) * 8);
+        for (int dp = 0; dp < HD / 16; ++dp) ldsm_x4_trans(vf[dp], vrow + dp * 16);
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        mma16816(o[2 * dp], hi, vf[dp][0], vf[dp][1]);
-        mma16816(o[2 * dp + 1], hi, vf[dp][2], vf[dp][3]);
-      }
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          mma16816(o[2 * dp], hi, vf[dp][0], vf[dp][1]);
+          mma16816(o[2 * dp + 1], hi, vf[dp][2], vf[dp][3]);
+        }
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        mma16816(o[2 * dp], lo, vf[dp][0], vf[dp][1]);
-        mma16816(o[2 * dp + 1], lo, vf[dp][2], vf[dp][3]);
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          mma16816(o[2 * dp], lo, vf[dp][0], vf[dp][1]);
+          mma16816(o[2 * dp + 1], lo, vf[dp][2], vf[dp][3]);
+        }
+      } else {  // wide heads: one V fragment at a time
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, vrow + dp * 16);
+          mma16816(o[2 * dp], hi, vf[0], vf[1]);
+          mma16816(o[2 * dp + 1], hi, vf[2], vf[3]);
+          mma16816(o[2 * dp], lo, vf[0], vf[1]);
+          mma16816(o[2 * dp + 1], lo, vf[2], vf[3]);
+        }
       }
     }
     __syncthreads();  // this stage is refilled TC_STAGES - 1 tiles on
@@ -466,7 +490,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   switch (hd) {
     REPRO_FLASH(32)
     REPRO_FLASH(64)
+    REPRO_FLASH(96)
     REPRO_FLASH(128)
+    REPRO_FLASH(256)
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FLASH

@@ -10,7 +10,7 @@ other rounds:
 * products accumulate in f32 and are cast back to the activation dtype at
   the same points as the JAX ``preferred_element_type=f32`` einsums.
   Where JAX keeps such a product in f32 (the MLP's gate/up, the logits),
-  :func:`_matmul_f32` keeps it too: on the card a bf16 GEMM that writes
+  :func:`matmul_f32` keeps it too: on the card a bf16 GEMM that writes
   f32, on the CPU a product of the operands upcast to f32 (exact, since
   the products of bf16 values are exact in f32).
 
@@ -151,7 +151,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bsd,dhk->bshk, accumulated in f32, in x's dtype."""
     B, S, D = x.shape
     return (x @ w.reshape(D, -1)).view(B, S, w.shape[1], w.shape[2])
@@ -159,9 +159,9 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention_qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
                   theta: float):
-    q = apply_rope(_proj(x, params["wq"]), positions, theta)
-    k = apply_rope(_proj(x, params["wk"]), positions, theta)
-    v = _proj(x, params["wv"]).contiguous()
+    q = apply_rope(proj(x, params["wq"]), positions, theta)
+    k = apply_rope(proj(x, params["wk"]), positions, theta)
+    v = proj(x, params["wv"]).contiguous()
     return q, k, v
 
 
@@ -176,7 +176,7 @@ def attention_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., D) @ w (D, F) with an f32 result, whatever the operands'
     dtype: ``preferred_element_type=f32``. A bf16 product on the card is
     one bf16 GEMM that writes f32 (the weights are read as they are, not
@@ -192,9 +192,9 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    up = _matmul_f32(x, params["w_up"])
+    up = matmul_f32(x, params["w_up"])
     if "w_gate" in params:
-        h = F.silu(_matmul_f32(x, params["w_gate"])) * up
+        h = F.silu(matmul_f32(x, params["w_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")
     return h.to(x.dtype) @ params["w_down"]
@@ -202,7 +202,7 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def unembed(embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits (B, S, V) in f32 from x (B, S, D) and a (V, D) table."""
-    return _matmul_f32(x, embedding.T)
+    return matmul_f32(x, embedding.T)
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +224,7 @@ def moe_init(gen, d_model: int, d_ff: int, num_experts: int, dtype,
 
 def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, N, D) @ w (E, D, F) -> (E, N, F) f32, per expert: the batched
-    :func:`_matmul_f32` (``preferred_element_type=f32``)."""
+    :func:`matmul_f32` (``preferred_element_type=f32``)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.bmm(x, w)
     if x.device.type == "cuda":

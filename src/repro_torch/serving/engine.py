@@ -31,12 +31,15 @@ def bucket_batch(n: int) -> int:
 def greedy_generate(cfg: ModelConfig, params: Any, batch: dict,
                     max_new: int) -> torch.Tensor:
     """Greedy decode ``max_new`` tokens after the (uniform-length) prompts
-    ``batch["tokens"]`` (B, Lp). Returns (B, max_new) int32 on the
-    params' device. The JAX scan also runs one last decode step whose
-    token it drops; this loop stops before it, which changes no output."""
-    tokens = batch["tokens"]
-    Lp = tokens.shape[1]
-    logits, cache, pos = prefill(cfg, params, batch, Lp + max_new)
+    ``batch["tokens"]`` (B, Lp), with the family's frontend input
+    (``patch_embeds``, ``frames``) beside them; the vlm family's cache
+    also holds its ``num_patches`` patch positions. Returns (B, max_new)
+    int32 on the params' device. The JAX scan also runs one last decode
+    step whose token it drops; this loop stops before it, which changes no
+    output."""
+    Lp = batch["tokens"].shape[1]
+    extra = cfg.num_patches if cfg.family == "vlm" else 0
+    logits, cache, pos = prefill(cfg, params, batch, Lp + extra + max_new)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     outs = [tok]
     for _ in range(max_new - 1):
@@ -67,8 +70,9 @@ class ServingEngine:
             self.tokens_processed += tokens
 
     def generate(self, batch: dict, max_new: int) -> torch.Tensor:
-        """Serve one uniform-length batch; returns (B, max_new) int32 on
-        the engine's device."""
+        """Serve one uniform-length batch (``tokens`` and any frontend
+        input, each key passed on to the model); returns (B, max_new)
+        int32 on the engine's device."""
         tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64,
                                  device=self.device)
         key = (tuple(tokens.shape), max_new) + tuple(sorted(
@@ -79,8 +83,10 @@ class ServingEngine:
             else:
                 self.jit_misses += 1
                 self._variants.add(key)
-        out = greedy_generate(self.cfg, self.params, {"tokens": tokens},
-                              max_new)
+        inputs = {k: torch.as_tensor(v, device=self.device)
+                  for k, v in batch.items() if k != "tokens"}
+        out = greedy_generate(self.cfg, self.params,
+                              {**inputs, "tokens": tokens}, max_new)
         self._bill(tokens.shape[0], tokens.numel() + out.numel())
         return out
 

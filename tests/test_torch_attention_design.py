@@ -11,9 +11,11 @@ torch on the CPU (the kernels themselves run only on the card,
   where the window masks some chunks entirely;
 * the bf16 tensor-core flash path (``csrc/flash_attention.cu``): 64-key
   tiles, f32 online softmax, and P rounded to bf16 as the A operand of P V
-  (one bf16 term, and the hi + lo pair the kernel uses), at llama3-8b's
-  head shapes, against ``flash_attention_plain``: the error budget of the
-  rounding against the 2e-2 bf16 tolerance.
+  (one bf16 term, and the hi + lo pair the kernel uses), at llama3-8b's,
+  recurrentgemma-2b's (hd 256) and phi-3-vision's (hd 96) head shapes,
+  against ``flash_attention_plain``: the error budget of the rounding
+  against the 2e-2 bf16 tolerance. The decode cases include those widths
+  and whisper's 1500-frame cross read.
 """
 import jax
 import numpy as np
@@ -111,6 +113,10 @@ DECODE_CASES = [
     (2, 90, 2, 4, 32, 0, [90, 45], 45),            # two chunks
     (1, 512, 2, 4, 64, 0, [512], 16),              # 32 chunks
     (4, 300, 2, 1, 32, 37, [300, 37, 36, 250], 16),
+    (1, 139, 1, 10, 256, 2048, [131], None),       # recurrentgemma-2b
+    (1, 2109, 1, 10, 256, 2048, [2101], None),     # past its window
+    (1, 282, 32, 1, 96, 0, [274], None),           # phi-3-vision
+    (2, 1500, 16, 1, 64, 0, [1500, 1500], None),   # whisper's cross read
 ]
 
 
@@ -263,19 +269,25 @@ def flash_tiles_bf16(q, k, v, *, causal=True, window=0, kv_len=None,
 
 
 @pytest.mark.parametrize("split_p,f32_budget", [(True, 1e-4), (False, 1e-2)])
-@pytest.mark.parametrize("Sq,window,kv_len", [
-    (300, 0, None), (300, 64, None), (130, 0, None), (17, 0, None),
-    (300, 0, 250)])
-def test_flash_bf16_p_error_budget(Sq, window, kv_len, split_p, f32_budget):
-    """llama3-8b heads (H=32, KV=8, hd=128, bf16 inputs): the tile-wise
-    f32 softmax with P rounded for P V stays within the bf16 tolerance of
-    the plain version. Before the output's own bf16 rounding the kernel's
-    f32 result is within ~1e-5 of the plain f32 math with P as hi + lo
-    (the kernel's choice), and within ~4e-3 with one bf16 term."""
-    rng = np.random.default_rng(Sq + window)
-    q = _normal(rng, (1, Sq, 32, 128)).to(torch.bfloat16)
-    k = _normal(rng, (1, Sq, 8, 128)).to(torch.bfloat16)
-    v = _normal(rng, (1, Sq, 8, 128)).to(torch.bfloat16)
+@pytest.mark.parametrize("Sq,window,kv_len,H,KV,hd", [
+    (300, 0, None, 32, 8, 128), (300, 64, None, 32, 8, 128),
+    (130, 0, None, 32, 8, 128), (17, 0, None, 32, 8, 128),
+    (300, 0, 250, 32, 8, 128),
+    (130, 0, None, 10, 1, 256), (300, 100, None, 10, 1, 256),
+    (273, 0, None, 32, 32, 96)])
+def test_flash_bf16_p_error_budget(Sq, window, kv_len, H, KV, hd, split_p,
+                                   f32_budget):
+    """llama3-8b heads (H=32, KV=8, hd=128, bf16 inputs), recurrentgemma-
+    2b's (10 over 1 kv head of 256) and phi-3-vision's (32 of 96): the
+    tile-wise f32 softmax with P rounded for P V stays within the bf16
+    tolerance of the plain version. Before the output's own bf16 rounding
+    the kernel's f32 result is within ~1e-5 of the plain f32 math with P
+    as hi + lo (the kernel's choice), and within ~4e-3 with one bf16
+    term."""
+    rng = np.random.default_rng(Sq + window + hd)
+    q = _normal(rng, (1, Sq, H, hd)).to(torch.bfloat16)
+    k = _normal(rng, (1, Sq, KV, hd)).to(torch.bfloat16)
+    v = _normal(rng, (1, Sq, KV, hd)).to(torch.bfloat16)
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32)
     got = flash_tiles_bf16(q, k, v, window=window, kv_len=kl,
                            split_p=split_p)

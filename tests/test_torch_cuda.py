@@ -22,7 +22,10 @@ single-device store on the card, bit for bit.
 The attention cases cover the split-KV decode (several chunks, a window
 across a chunk boundary, cache_len per row, cache_len = 0, repeated calls
 on one workspace) and the flash paths (ragged Sq, kv_len, Sq < Sk), at
-hd 32/64/128 in f32 and bf16.
+hd 32/64/128 in f32 and bf16; the zoo's wider and odd heads (hd 96 of
+phi-3-vision, hd 256 with G = 10 of recurrentgemma-2b) and whisper's
+non-causal encoder (Sq = Sk = 1500) and cross reads (Sq != Sk, the decode
+read over 1500 frames); and a head width no kernel instantiates, refused.
 """
 import functools
 
@@ -566,6 +569,67 @@ def test_cuda_flash_matches_plain(rng, cuda, B, Sq, Sk, H, KV, hd, causal,
     want = fa.flash_attention_plain(q, k, v, **kw).float()
     got = fa.flash_attention_cuda(q, k, v, **kw).float()
     assert (got - want).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (1, 130, 130, 10, 1, 256, True, 0),        # recurrentgemma-2b
+    (1, 2100, 2100, 10, 1, 256, True, 2048),   # past its window
+    (2, 77, 77, 10, 1, 256, True, 16),
+    (1, 273, 273, 32, 32, 96, True, 0),        # phi-3-vision: patches + text
+    (2, 386, 386, 32, 32, 96, True, 0),
+    (2, 45, 45, 8, 2, 96, True, 20),
+    (1, 1500, 1500, 16, 16, 64, False, 0),     # whisper's encoder
+    (2, 17, 1500, 16, 16, 64, False, 0),       # its cross-attention
+    (1, 130, 1500, 16, 16, 64, False, 0),
+    (2, 33, 70, 4, 4, 96, False, 0),
+    (2, 9, 300, 10, 1, 256, False, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_wide_heads_and_cross_match_plain(rng, cuda, B, Sq, Sk, H,
+                                                     KV, hd, causal, window,
+                                                     dtype):
+    q, k, v = _attn_inputs(rng, cuda, dtype, (B, Sq, H, hd), (B, Sk, KV, hd),
+                           (B, Sk, KV, hd))
+    kw = dict(causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, **kw).float()
+    got = fa.flash_attention_cuda(q, k, v, **kw).float()
+    assert (got - want).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,cls,H,KV,hd,window", [
+    (1, 139, [131], 10, 1, 256, 2048),         # recurrentgemma-2b
+    (1, 2109, [2101], 10, 1, 256, 2048),       # past its window
+    (3, 300, [300, 1, 170], 10, 1, 256, 0),
+    (1, 282, [274], 32, 32, 96, 0),            # phi-3-vision
+    (2, 395, [387, 200], 32, 32, 96, 0),
+    (2, 100, [100, 37], 12, 4, 96, 30),
+    (2, 1500, [1500, 1500], 16, 16, 64, 0),    # whisper's cross read
+    (1, 139, [18], 16, 16, 64, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_wide_heads_match_plain(rng, cuda, B, M, cls, H, KV, hd,
+                                            window, dtype):
+    q, k, v = _attn_inputs(rng, cuda, dtype, (B, H, hd), (B, M, KV, hd),
+                           (B, M, KV, hd))
+    cl = torch.tensor(cls, dtype=torch.int32, device=cuda)
+    want = da.decode_attention_plain(q, k, v, cl, window=window).float()
+    got = da.decode_attention_cuda(q, k, v, cl, window=window).float()
+    assert (got - want).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 48, 80, 160, 512])
+def test_cuda_attention_refuses_head_widths_it_lacks(rng, cuda, hd):
+    """A width no kernel instantiates raises on the card, in both dispatch
+    routes; nothing falls back to the plain version."""
+    q, k = _attn_inputs(rng, cuda, torch.bfloat16, (1, 8, 4, hd),
+                        (1, 8, 4, hd))
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.decode_attention(q[:, 0].contiguous(), k, k, 8)
 
 
 # ---------------------------------------------------------------------------

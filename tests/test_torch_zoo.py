@@ -1,19 +1,21 @@
-"""The model zoo's dense and moe families in the port, against the JAX
-package: the twins of ``tests/test_models.py`` for the dense and moe
-archs, of its config-level tests, and of ``layers.moe``.
+"""The model zoo in the port, against the JAX package: the twins of
+``tests/test_models.py`` for every arch of the registry, of its
+config-level tests, and of ``layers.moe``.
 
-Every dense and moe arch of the registry runs at its smoke config (f32)
-on JAX's weights through the bridge: forward logits within 1e-4 and its
-aux loss within 1e-5 relative, prefill and decode-step logits within 1e-4
-(the two frameworks sum their products in other orders: ~1e-5 on logits
-of magnitude ~5); greedy tokens identical. The port's own checks of
-``test_models.py``: shapes and finiteness, one AdamW step that moves the
-parameters, prefill == forward and decode == forward at 1e-4 (f32, where
-JAX's bf16-minded test allows 0.1). ``moe`` alone is held to JAX's
-``layers.moe`` in both dispatches at a capacity factor that drops tokens:
-expert indices, places and kept masks exactly, gates and aux within 1e-6,
-outputs within 1e-5. The ssm, hybrid, vlm and audio archs resolve in the
-registry and are refused by the model, naming their ROADMAP item.
+Every arch runs at its smoke config (f32) on JAX's weights through the
+bridge, its batch carrying the family's frontend input as JAX's
+``test_models.make_batch`` builds it (``patch_embeds`` for the vlm
+family, ``frames`` for the audio family): forward logits within 1e-4 and
+its aux loss within 1e-5 relative, prefill and decode-step logits within
+1e-4 (the two frameworks sum their products in other orders: ~1e-5 on
+logits of magnitude ~5); greedy tokens identical. The port's own checks
+of ``test_models.py``: shapes and finiteness, one AdamW step that moves
+the parameters, prefill == forward and decode == forward at 1e-4 (f32,
+where JAX's bf16-minded test allows 0.1); the vlm cache holds the
+patches' positions too. ``moe`` alone is held to JAX's ``layers.moe`` in
+both dispatches at a capacity factor that drops tokens: expert indices,
+places and kept masks exactly, gates and aux within 1e-6, outputs within
+1e-5.
 """
 import dataclasses
 import types
@@ -28,6 +30,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import decode_step as jdecode
 from repro.models import forward as jforward
+from repro.models import init_cache as jinit_cache
 from repro.models import init_params as jinit
 from repro.models import layers as jlayers
 from repro.models import prefill as jprefill
@@ -38,25 +41,38 @@ from repro_torch.models import layers as tlayers
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.tree import leaves
 
-ARCHS = [a for a in configs.all_archs()
-         if configs.get(a).family in ("dense", "moe")]
-OTHERS = [a for a in configs.all_archs() if a not in ARCHS]
+ARCHS = configs.all_archs()
 B, S = 2, 16
 
 
+def _extra(cfg) -> int:
+    """Cache positions a prompt takes beyond its tokens."""
+    return cfg.num_patches if cfg.family == "vlm" else 0
+
+
 def _batch(cfg, seed):
+    """Tokens, labels, the next tokens, and the family's frontend input
+    (as ``tests/test_models.py::make_batch``: standard normal f32)."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
     labels = np.roll(tokens, -1, axis=1).astype(np.int32)
     labels[:, -1] = -1
-    return tokens, labels, rng.integers(1, cfg.vocab_size, B).astype(np.int32)
+    nxt = rng.integers(1, cfg.vocab_size, B).astype(np.int32)
+    front = {}
+    if cfg.family == "vlm":
+        front["patch_embeds"] = rng.normal(
+            size=(B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        front["frames"] = rng.normal(
+            size=(B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    return tokens, labels, nxt, front
 
 
 @partial(jax.jit, static_argnums=(0,))
-def _jax_run(cfg, params, tokens, nxt):
+def _jax_run(cfg, params, batch, nxt):
     """Forward (logits, aux), prefill's last logits, one decode step."""
-    logits, aux = jforward(cfg, params, {"tokens": tokens})
-    last, cache, pos = jprefill(cfg, params, {"tokens": tokens}, S + 4)
+    logits, aux = jforward(cfg, params, batch)
+    last, cache, pos = jprefill(cfg, params, batch, S + _extra(cfg) + 4)
     step, _ = jdecode(cfg, params, nxt, cache, pos)
     return logits, aux, last, step
 
@@ -69,22 +85,34 @@ def zoo(request):
     jc, tc = jconfigs.get_smoke(arch), configs.get_smoke(arch)
     jp = jax.jit(jinit, static_argnums=0)(jc, jax.random.PRNGKey(0))
     tp = bridge.lm_params(tc, jax.tree.map(np.asarray, jp), device="cpu")
-    tokens, labels, nxt = _batch(tc, len(arch))
+    tokens, labels, nxt, front = _batch(tc, len(arch))
+    jbatch = {"tokens": jnp.asarray(tokens),
+              **{k: jnp.asarray(v) for k, v in front.items()}}
     want = [np.asarray(x, np.float32) for x in
-            _jax_run(jc, jp, jnp.asarray(tokens), jnp.asarray(nxt))]
+            _jax_run(jc, jp, jbatch, jnp.asarray(nxt))]
     return dict(arch=arch, cfg=tc, params=tp, tokens=tokens, labels=labels,
-                nxt=nxt, want=want)
+                nxt=nxt, front=front, want=want)
+
+
+def _inputs(zoo, tokens=None):
+    """The port's batch: ``tokens`` (default the fixture's) and the
+    frontend input."""
+    t = torch.from_numpy(zoo["tokens"]).long() if tokens is None else tokens
+    return {"tokens": t,
+            **{k: torch.from_numpy(v) for k, v in zoo["front"].items()}}
 
 
 def test_zoo_matches_jax_on_bridged_weights(zoo):
     cfg, p = zoo["cfg"], zoo["params"]
     w_logits, w_aux, w_last, w_step = zoo["want"]
-    t = torch.from_numpy(zoo["tokens"]).long()
-    logits, aux = forward(cfg, p, {"tokens": t})
+    logits, aux = forward(cfg, p, _inputs(zoo))
     np.testing.assert_allclose(logits.numpy(), w_logits, rtol=0, atol=1e-4)
     np.testing.assert_allclose(aux.item(), w_aux, rtol=1e-5, atol=1e-7)
-    last, cache, pos = prefill(cfg, p, {"tokens": t}, S + 4)
-    assert pos == S and cache["k"].shape[2] == S + 4
+    max_len = S + _extra(cfg) + 4
+    last, cache, pos = prefill(cfg, p, _inputs(zoo), max_len)
+    assert pos == S + _extra(cfg)
+    if "k" in cache:
+        assert cache["k"].shape[2] == max_len
     np.testing.assert_allclose(last.numpy(), w_last, rtol=0, atol=1e-4)
     step, _ = decode_step(cfg, p, torch.from_numpy(zoo["nxt"]), cache, pos)
     np.testing.assert_allclose(step.numpy(), w_step, rtol=0, atol=1e-4)
@@ -94,8 +122,7 @@ def test_zoo_matches_jax_on_bridged_weights(zoo):
 
 def test_zoo_forward_shapes_and_finite(zoo):
     cfg = zoo["cfg"]
-    logits, aux = forward(cfg, zoo["params"],
-                          {"tokens": torch.from_numpy(zoo["tokens"]).long()})
+    logits, aux = forward(cfg, zoo["params"], _inputs(zoo))
     assert logits.shape == (B, S, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
     assert (aux.item() > 0) == (cfg.family == "moe")
@@ -106,14 +133,15 @@ def test_zoo_one_train_step_moves_params(zoo):
     step = make_train_step(cfg, AdamWConfig(learning_rate=1e-3,
                                             warmup_steps=1, total_steps=10))
     new, _, metrics = step(p, init_opt_state(p),
-                           {"tokens": zoo["tokens"], "labels": zoo["labels"]})
+                           {"tokens": zoo["tokens"], "labels": zoo["labels"],
+                            **zoo["front"]})
     assert bool(torch.isfinite(metrics["loss"])) and metrics["loss"] > 0
     assert all(bool(torch.isfinite(x.float()).all()) for x in leaves(new))
     assert any(bool((a != b).any()) for a, b in zip(leaves(p), leaves(new)))
     if cfg.family == "moe":     # the router learns too (through the gates)
         assert bool((new["layers"]["moe"]["router"] !=
                      p["layers"]["moe"]["router"]).any())
-    total, m = loss_fn(cfg, p, {"tokens": torch.from_numpy(zoo["tokens"]),
+    total, m = loss_fn(cfg, p, {**_inputs(zoo),
                                 "labels": torch.from_numpy(zoo["labels"])})
     np.testing.assert_allclose(total.item(), (m["ce"] + 0.01 * m["aux"]
                                               ).item(), rtol=1e-6)
@@ -122,14 +150,14 @@ def test_zoo_one_train_step_moves_params(zoo):
 def test_zoo_prefill_and_decode_match_forward(zoo):
     cfg, p = zoo["cfg"], zoo["params"]
     t = torch.from_numpy(zoo["tokens"]).long()
-    full, _ = forward(cfg, p, {"tokens": t})
-    last, cache, pos = prefill(cfg, p, {"tokens": t}, S + 4)
+    full, _ = forward(cfg, p, _inputs(zoo))
+    last, cache, pos = prefill(cfg, p, _inputs(zoo), S + _extra(cfg) + 4)
     np.testing.assert_allclose(last.numpy(), full[:, -1].numpy(), rtol=0,
                                atol=1e-4)
     nxt = torch.from_numpy(zoo["nxt"])
     step, _ = decode_step(cfg, p, nxt, cache, pos)
-    ext, _ = forward(cfg, p, {"tokens": torch.cat([t, nxt[:, None].long()],
-                                                  1)})
+    ext, _ = forward(cfg, p, _inputs(zoo, torch.cat([t, nxt[:, None].long()],
+                                                    1)))
     np.testing.assert_allclose(step.numpy(), ext[:, -1].numpy(), rtol=0,
                                atol=1e-4)
 
@@ -298,13 +326,31 @@ def test_registry_matches_jax():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_counts_match_formula(arch):
     """param_count() against the port's init (within embed rounding), as
-    test_models.py's twin for the archs the port runs."""
+    test_models.py's twin, and the same number of parameters as JAX's."""
     cfg = configs.get_smoke(arch)
     actual = sum(x.numel() for x in leaves(init_params(cfg, 0, "cpu")))
     assert abs(actual - cfg.param_count()) / actual < 0.15
     jc = jconfigs.get_smoke(arch)
     jp = jax.eval_shape(lambda key: jinit(jc, key), jax.random.PRNGKey(0))
     assert actual == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(jp))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("ring", [False, True])
+def test_init_cache_matches_jax_layout(arch, ring):
+    """Every family's cache has JAX's keys, shapes and dtypes (the ssm and
+    RG-LRU states f32), and a ring of decode_window slots."""
+    cfg, jc = configs.get_smoke(arch), jconfigs.get_smoke(arch)
+    if ring:
+        cfg = dataclasses.replace(cfg, decode_window=8, ring_cache=True)
+        jc = dataclasses.replace(jc, decode_window=8, ring_cache=True)
+    want = jax.eval_shape(lambda: jinit_cache(jc, 2, 24, jnp.float32))
+    got = init_cache(cfg, 2, 24, device="cpu")
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert tuple(got[k].shape) == w.shape, k
+        assert str(got[k].dtype).split(".")[1] == str(w.dtype), k
+        assert not bool(got[k].any())
 
 
 def test_moe_active_params_less_than_total():
@@ -331,31 +377,30 @@ def test_hybrid_pattern():
     assert b.count("a") == 8 and b.count("r") == 18
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_unported_families_are_refused(arch):
-    cfg = configs.get_smoke(arch)
-    item = {"ssm": 3, "hybrid": 3, "vlm": 4, "audio": 4}[cfg.family]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}"):
-        init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}"):
-        init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        bridge.lm_params(cfg, {}, device="cpu")
-
-
 def test_zoo_engine_serves_like_forward(zoo):
-    """ServingEngine.generate_bucketed on prompts of two lengths gives the
-    greedy tokens of the training forward re-run on each grown sequence."""
+    """The engine gives the greedy tokens of the training forward re-run
+    on each grown sequence: ``generate_bucketed`` on prompts of two
+    lengths, or, for a family with a frontend input, ``generate`` on one
+    row's prompt with its patches or frames."""
     from repro_torch.serving.engine import ServingEngine
     cfg, p = zoo["cfg"], zoo["params"]
-    prompts = [zoo["tokens"][0, :5], zoo["tokens"][1, :9],
-               zoo["tokens"][0, :9]]
-    got = ServingEngine(cfg, p).generate_bucketed(prompts, 3)
+    engine = ServingEngine(cfg, p)
+    if zoo["front"]:
+        prompts = [zoo["tokens"][0, :9]]
+        front = {k: v[:1] for k, v in zoo["front"].items()}
+        got = engine.generate({"tokens": prompts[0][None], **front},
+                              3).numpy()
+        assert engine.stats()["calls"] == 1
+    else:
+        prompts = [zoo["tokens"][0, :5], zoo["tokens"][1, :9],
+                   zoo["tokens"][0, :9]]
+        front = {}
+        got = engine.generate_bucketed(prompts, 3)
     for prompt, row in zip(prompts, got):
         seq = torch.from_numpy(prompt).long()[None]
         for tok in row:
-            logits, _ = forward(cfg, p, {"tokens": seq})
+            logits, _ = forward(cfg, p, {
+                "tokens": seq, **{k: torch.from_numpy(v)
+                                  for k, v in front.items()}})
             assert int(logits[0, -1].argmax()) == int(tok)
             seq = torch.cat([seq, torch.tensor([[int(tok)]])], 1)
