@@ -57,6 +57,22 @@ Phases, each of which fails the run on any error:
   ring over 1100, B = 2, every step's logits equal to the full cache's at
   the same ``decode_window`` (rtol = atol = 2e-4), through the decode
   kernel in ring mode;
+* T (after Z): the zoo trainer (``repro_torch.launch.train.train``) on
+  the card. T1: olmo-1b at full width and depth (bf16, batch 4 x 1024, 6
+  steps): every loss finite, the last below the first, the checkpoint
+  reloaded bit for bit and served (Phase Z's serving run and logit checks
+  on the trained weights, prompts of 17 and 130 tokens: flash and decode
+  launch). T2: whisper-medium at full width and depth (batch 2 x 448, 1500
+  frames, 4 steps): losses finite and falling. Both: ms/step, tokens/s,
+  peak memory and the card's busy share. T3: every arch's smoke config, 3
+  steps on the card and on the CPU from one init, every step's loss within
+  T3_TOL relative;
+* D (after T): the dry run on this machine's torch, ``python -m
+  repro_torch.launch.dryrun`` for the six pairs of ``tests/test_dryrun.py``
+  (a process each, side by side, the card hidden): each ``ok`` (whisper-
+  medium ``train_4k``, which the JAX package fails, ``ok`` or ``FAILED`` as
+  ROADMAP.md records), with its compute, memory and collective terms, the
+  dominant one and its arguments per device against 80 GB;
 * S: the trained system on the card. S0 runs 5 train steps of rar-weak
   (AdamW) and of the embedder (Adam) from one init on the card and on the
   CPU (losses within 1e-4 relative, parameters within 1e-4 of the
@@ -128,7 +144,8 @@ Phases, each of which fails the run on any error:
 
 The launch counters are zeroed right before each main-path phase (for S,
 before S1; A1-A3 together, A4 alone, F1-F4 together, M1-M4 together, F5
-alone, each of Z's serving and ring runs) and read right after it, a
+alone, each of Z's serving and ring runs, T1's serving run) and read
+right after it, a
 process fabric's workers' counts added, Phase M's timed reads' and Phase
 Z's checks' launches taken out; a kernel of the path that did not launch
 fails the run.
@@ -205,6 +222,21 @@ Z_MODELS = (("olmoe-1b-7b", (17, 130), None),
 # Z1/Z2: the kernel path's logits within Z_TOL x the largest reference
 # logit of the training path's (both bf16 on the card; PERF.md, PR 21)
 Z_TOL = 0.05
+# T1/T2: (arch, steps, batch, seq) trained at full width and depth; T3:
+# (steps, batch, seq) of every arch's smoke config, card against CPU
+T1 = ("olmo-1b", 6, 4, 1024)
+T1_PROMPTS = (17, 130)           # T1: served from the reloaded checkpoint
+T2 = ("whisper-medium", 4, 2, 448)
+T3 = (3, 4, 32)
+T_LR, T3_TOL = 1e-3, 1e-4
+# D: the dry-run pairs of tests/test_dryrun.py (arch, shape, multi-pod)
+D_CASES = (("llama3-8b", "decode_32k", False),
+           ("llama3-8b", "decode_32k", True),
+           ("mamba2-2.7b", "long_500k", False),
+           ("olmoe-1b-7b", "prefill_32k", False),
+           ("recurrentgemma-2b", "decode_32k", False),
+           ("whisper-medium", "train_4k", False))
+D_TIMEOUT_S = 400
 # Z3: (arch, decode_window = ring slots, decode steps, B, depth cut)
 Z_RINGS = (("olmoe-1b-7b", 256, 300, 2, None),
            ("gemma3-27b", 1024, 1100, 2, 6))
@@ -1376,7 +1408,7 @@ def z_front(cfg, rng):
     return {key: rng.normal(size=(1, n, cfg.d_model)).astype(np.float32)}
 
 
-def z_model(torch, ops, arch, lengths, cut=None):
+def z_model(torch, ops, arch, lengths, cut=None, params=None):
     """Z1/Z2 for one arch at full width (depth cut to ``cut`` layers if
     given): random weights from a seed; the engine on seeded prompts of
     ``lengths`` with Z_MAX_NEW new tokens (``generate_bucketed``, or for a
@@ -1391,7 +1423,8 @@ def z_model(torch, ops, arch, lengths, cut=None):
     and drops other tokens. Flash and decode must launch in the serving
     run and in the checks, except for the ssm family, whose path must
     launch neither. Returns the launches of the serving run and the
-    numbers."""
+    numbers. ``params`` (Phase T1's trained weights) replaces the random
+    ones."""
     import numpy as np
 
     from repro_torch import configs
@@ -1407,7 +1440,9 @@ def z_model(torch, ops, arch, lengths, cut=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, Z_SEED, device=cuda)
+    made = params is None
+    if made:
+        params = init_params(cfg, Z_SEED, device=cuda)
     torch.cuda.synchronize()
     weights = sum(t.numel() * t.element_size()
                   for t in leaves(params)) / 1e9
@@ -1430,8 +1465,10 @@ def z_model(torch, ops, arch, lengths, cut=None):
            else "")
         + f"{shape}, vocab {cfg.vocab_size}, "
         f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm_type}, "
-        f"{cfg.param_dtype}: {weights:.2f} GB of random weights (seed "
-        f"{Z_SEED}) in {time.perf_counter() - t0:.1f} s")
+        f"{cfg.param_dtype}: {weights:.2f} GB of "
+        + (f"random weights (seed {Z_SEED}) in "
+           f"{time.perf_counter() - t0:.1f} s" if made else
+           "trained weights"))
     rng = np.random.default_rng(Z_SEED)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in lengths]
@@ -1599,6 +1636,192 @@ def phase_z(torch, ops):
         add(c)
     log(f"Z took {time.perf_counter() - t_phase:.1f} s; launches {counts}")
     return counts, results
+
+
+# ---------------------------------------------------------------------------
+# Phase T: the zoo trainer on the card; Phase D: the dry run
+# ---------------------------------------------------------------------------
+
+
+def recorded_train(arch, init_device=None, **kw):
+    """``repro_torch.launch.train.train(arch, **kw)`` recording every
+    step's metrics and the tree it saves: (its result, [per-step metrics
+    as floats], the saved tree or None). With ``init_device`` the initial
+    weights are drawn there and moved to the training device (a CUDA
+    generator draws other numbers than the CPU's for one seed)."""
+    from repro_torch.launch import train as lt
+    steps, saved = [], []
+    make, save, init = lt.make_train_step, lt.save_checkpoint, lt.init_params
+
+    def make_recorded(*a, **k):
+        fn = make(*a, **k)
+
+        def step(*args):
+            p, o, m = fn(*args)
+            steps.append({k: float(v) for k, v in m.items()})
+            return p, o, m
+        return step
+
+    def save_kept(path, tree):
+        saved.append(tree)
+        save(path, tree)
+    def init_moved(cfg, seed, device):
+        return to_device(init(cfg, seed, device=init_device), device)
+    lt.make_train_step, lt.save_checkpoint = make_recorded, save_kept
+    if init_device is not None:
+        lt.init_params = init_moved
+    try:
+        out = lt.train(arch, **kw)
+    finally:
+        lt.make_train_step, lt.save_checkpoint = make, save
+        lt.init_params = init
+    return out, steps, (saved[0] if saved else None)
+
+
+def t_full(torch, arch, steps, batch, seq, ckpt=None):
+    """T1/T2: ``train`` at full width and depth on the card, profiled:
+    every loss finite and the last below the first; ms/step, tokens/s,
+    peak memory and the card's busy share. Returns (numbers, saved
+    tree)."""
+    import math
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got = {}
+
+    def run():
+        got["r"] = recorded_train(arch, smoke=False, steps=steps,
+                                  batch=batch, seq=seq, lr=T_LR, ckpt=ckpt,
+                                  log_every=1, device=DEV)
+    busy, wall = busy_ms(torch, run, f"t_{arch}")
+    _, hist, saved = got["r"]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"T {arch}: losses {losses} (finite and "
+                             f"falling required)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = dict(losses=losses, ms_per_step=wall / steps,
+               tokens_per_s=steps * batch * seq / (wall / 1e3),
+               max_memory_gb=peak,
+               busy_share=None if busy is None else busy / wall)
+    log(f"T {arch}: {steps} steps at batch {batch} x seq {seq} in "
+        f"{wall / 1e3:.2f} s (first step's build and warm-up included): "
+        f"{res['ms_per_step']:.1f} ms/step, {res['tokens_per_s']:.0f} "
+        f"tokens/s; losses {[round(x, 4) for x in losses]}; "
+        f"max_memory_allocated {peak:.2f} GB; card busy "
+        f"{'not measured' if busy is None else f'{busy:.1f} ms of {wall:.1f} ms ({100 * busy / wall:.1f}%)'}")
+    return res, saved
+
+
+def phase_t(torch, ops):
+    """T1: olmo-1b trained at full width and depth, its checkpoint
+    reloaded bit for bit and served (Phase Z's serving run and logit
+    checks on the trained weights: flash and decode launch); T2:
+    whisper-medium at full width and depth; T3: every arch's smoke config
+    on the card and on the CPU from one init (the CPU's draw of seed 0),
+    every step's loss within T3_TOL relative.
+    Returns the launches of T1's serving run and the numbers."""
+    from repro_torch import configs
+    from repro_torch.launch.train import tensor_name
+    from repro_torch.training import load_checkpoint
+    t_phase = time.perf_counter()
+    results = {}
+    arch, steps, batch, seq = T1
+    ckpt = ROOT / "build" / "phase_t" / "olmo.npz"
+    results[arch], saved = t_full(torch, arch, steps, batch, seq, str(ckpt))
+    back = load_checkpoint(str(ckpt), device=DEV)
+    from repro_torch.tree import leaves
+    if tensor_name(back["cfg_name"].cpu()) != configs.get(arch).name or \
+            len(leaves(back["params"])) != len(leaves(saved["params"])) or \
+            not all(torch.equal(a, b) for a, b in zip(
+                leaves(back["params"]), leaves(saved["params"]))):
+        raise AssertionError("T1: the checkpoint does not reload bit for "
+                             "bit")
+    log(f"T1 checkpoint {ckpt.stat().st_size / 1e9:.2f} GB reloads bit for "
+        f"bit ({len(leaves(back['params']))} leaves)")
+    del saved
+    counts, results["serve"] = z_model(torch, ops, arch, T1_PROMPTS,
+                                       params=back["params"])
+    del back
+    torch.cuda.empty_cache()
+    arch, steps, batch, seq = T2
+    results[arch], _ = t_full(torch, arch, steps, batch, seq)
+    for arch in configs.all_archs():
+        runs = [recorded_train(arch, init_device="cpu", smoke=True,
+                               steps=T3[0], batch=T3[1], seq=T3[2], lr=T_LR,
+                               ckpt=None, log_every=T3[0], device=dev)[1]
+                for dev in (DEV, "cpu")]
+        card, cpu = ([h["loss"] for h in r] for r in runs)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        if not rel <= T3_TOL:
+            raise AssertionError(f"T3 {arch}: card losses {card} against "
+                                 f"the CPU's {cpu} (rel {rel:.3g})")
+        log(f"T3 {arch}: {T3[0]} smoke steps, card == CPU within {rel:.2g} "
+            f"relative (<= {T3_TOL}); losses {[round(x, 5) for x in card]}")
+        results[f"smoke_{arch}"] = rel
+    log(f"T took {time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return counts, results
+
+
+def phase_d():
+    """The dry run on this machine's torch: ``python -m
+    repro_torch.launch.dryrun`` for each of D_CASES, a process each, side
+    by side, without the card. Every pair must be ``ok``, whisper-medium
+    ``train_4k`` (which the JAX package fails) ``ok`` or ``FAILED`` as
+    ROADMAP.md records. Prints each pair's roofline terms and its
+    arguments per device against one card's memory."""
+    import os
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "phase_d"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for i, (arch, shape, mp) in enumerate(D_CASES):
+        out = out_dir / f"dr{i}.json"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)]
+        procs.append((arch, shape, mp, out, subprocess.Popen(
+            cmd + (["--multi-pod"] if mp else []), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)))
+    results, failed = {}, []
+    try:
+        for arch, shape, mp, out, p in procs:
+            text, _ = p.communicate(timeout=D_TIMEOUT_S)
+            if p.returncode != 0:
+                failed.append(f"D {arch} {shape}: exit {p.returncode}: "
+                              f"{text[-3000:]}")
+                continue
+            (rec,) = json.loads(out.read_text())
+            results[(arch, shape, mp)] = rec
+            mesh = "2x16x16" if mp else "16x16"
+            if rec["status"] != "ok":
+                log(f"D {arch} {shape} {mesh}: {rec['status']} "
+                    f"({rec.get('error')})\n{rec.get('traceback', '')}")
+                if (arch, shape) != ("whisper-medium", "train_4k"):
+                    failed.append(f"D {arch} {shape} {mesh}: "
+                                  f"{rec['status']}")
+                continue
+            r, m = rec["roofline"], rec["memory"]
+            log(f"D {arch} {shape} {mesh}: compute "
+                f"{r['compute_s'] * 1e3:.3f} ms, memory "
+                f"{r['memory_s'] * 1e3:.3f} ms, collective "
+                f"{r['collective_s'] * 1e3:.3f} ms, dominant "
+                f"{r['dominant']}; arguments "
+                f"{m['argument_bytes'] / 1e9:.3f} GB/device of 80 GB; "
+                f"counted/analytic FLOPs "
+                f"{r['flops_per_device'] / rec['analytic']['flops_per_device']:.3f}"
+                f"; replicated ops {rec['replicated_ops']}; ran "
+                f"{rec['compile_s']} s")
+    finally:
+        for *_, p in procs:
+            p.kill()
+            p.wait()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"D took {time.perf_counter() - t_phase:.1f} s")
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -3304,6 +3527,8 @@ def main() -> int:
     del i_results
     l_counts, _ = phase_l(torch, ops)
     z_counts, _ = phase_z(torch, ops)
+    t_counts, _ = phase_t(torch, ops)
+    phase_d()
     s_counts, s_results = phase_s(torch, ops)
     a4_counts, _ = phase_a4(torch, ops, s_results["system"])
     f5_counts, _ = phase_f5(torch, ops, s_results["system"])
@@ -3317,8 +3542,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(c.get(name, 0)
                             for c in (r_counts, i_counts, a_counts, f_counts,
-                                      m_counts, l_counts, z_counts, s_counts,
-                                      a4_counts, f5_counts)),
+                                      m_counts, l_counts, z_counts, t_counts,
+                                      s_counts, a4_counts, f5_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

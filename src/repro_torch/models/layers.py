@@ -176,15 +176,22 @@ def attention_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _recorded(*ts: torch.Tensor) -> bool:
+    """Whether autograd records a product of ``ts``: ``mm``/``bmm`` with
+    ``out_dtype`` have no derivative, so such a product upcasts instead."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., D) @ w (D, F) with an f32 result, whatever the operands'
     dtype: ``preferred_element_type=f32``. A bf16 product on the card is
     one bf16 GEMM that writes f32 (the weights are read as they are, not
-    upcast per call); on the CPU, which has no such GEMM, both operands
+    upcast per call); on the CPU, which has no such GEMM, and in training,
+    where autograd records the product (:func:`_recorded`), both operands
     are upcast."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" and not _recorded(x, w):
         out = torch.mm(x.reshape(-1, x.shape[-1]), w,
                        out_dtype=torch.float32)
         return out.view(*x.shape[:-1], w.shape[1])
@@ -227,7 +234,7 @@ def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     :func:`matmul_f32` (``preferred_element_type=f32``)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.bmm(x, w)
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" and not _recorded(x, w):
         return torch.bmm(x, w, out_dtype=torch.float32)
     return torch.bmm(x.float(), w.float())
 

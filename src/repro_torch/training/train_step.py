@@ -5,8 +5,14 @@
 forward, with the model-level attention), then one AdamW update.
 ``grad_accum > 1`` splits the batch into that many microbatches along its
 first axis and sums their f32 gradients in a Python loop, as the JAX
-version's ``lax.scan`` does. Sharded training (``batch_axes``) is not
-ported.
+version's ``lax.scan`` does.
+
+``batch_axes`` (a mesh axis name or a tuple of them) takes a batch of
+DTensors, as the dry run (:mod:`repro_torch.launch.dryrun`) places it:
+each microbatch, the same rows as without it, is redistributed to be
+split by rows over those axes and replicated over the others, the
+counterpart of JAX's ``with_sharding_constraint`` after the reshape. On
+plain tensors it raises: sharded training on cards is not ported.
 """
 from __future__ import annotations
 
@@ -41,10 +47,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics). ``batch`` holds ``tokens`` and ``labels`` (B, S), tensors or
     arrays; they are moved to the parameters' device."""
-    if batch_axes is not None:
-        raise NotImplementedError("batch_axes: sharded training is not "
-                                  "ported (ROADMAP queue 1 item 6)")
     opt_cfg = opt_cfg or AdamWConfig()
+    axes = (batch_axes if isinstance(batch_axes, tuple) or batch_axes is None
+            else (batch_axes,))
+
+    def constrain(x):
+        if axes is None:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(x, DTensor):
+            raise NotImplementedError(
+                "batch_axes takes a batch of DTensors; sharded training of "
+                "plain tensors on several cards is not ported")
+        mesh = x.device_mesh
+        return x.redistribute(mesh, [Shard(0) if n in axes else Replicate()
+                                     for n in mesh.mesh_dim_names])
 
     def loss(params, batch):
         return loss_fn(cfg, params, batch)
@@ -52,6 +69,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     def train_step(params: Any, opt_state: dict, batch: dict):
         dev = leaves(params)[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if axes is not None and grad_accum == 1:
+            batch = {k: constrain(v) for k, v in batch.items()}
         if grad_accum == 1:
             (total, metrics), grads = value_and_grad(loss, params, batch)
         else:
@@ -61,7 +80,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             msum = {k: torch.zeros((), dtype=torch.float32, device=dev)
                     for k in METRIC_KEYS + ("loss",)}
             for i in range(grad_accum):
-                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                mb = {k: constrain(v[i * n:(i + 1) * n])
+                      for k, v in batch.items()}
                 (l, m), g = value_and_grad(loss, params, mb)
                 gsum = tree_map(lambda a, gg: a + gg.to(torch.float32),
                                 gsum, g)

@@ -17,6 +17,7 @@ torch on the CPU (the kernels themselves run only on the card,
   against the 2e-2 bf16 tolerance. The decode cases include those widths
   and whisper's 1500-frame cross read.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax
 import numpy as np
 import pytest

@@ -27,6 +27,7 @@ phi-3-vision, hd 256 with G = 10 of recurrentgemma-2b) and whisper's
 non-causal encoder (Sq = Sk = 1500) and cross reads (Sq != Sk, the decode
 read over 1500 frames); and a head width no kernel instantiates, refused.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import functools
 
 import numpy as np

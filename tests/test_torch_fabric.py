@@ -10,6 +10,7 @@ so they hold the port to JAX's invariants (every request answered once,
 ``ptr == entries_applied``, one store in every view, unique logical
 times). Every wait passes a timeout.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 from test_fabric import build_fabric as jbuild_fabric

@@ -12,6 +12,7 @@ the wall clock are compared with JAX's run on the same stream (Outcome
 streams, stores and counters exact). The port's store is updated in
 place, so a run keeps a copy of it after every epoch.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import copy
 import os
 import threading

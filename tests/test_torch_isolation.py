@@ -3,6 +3,7 @@
 a process fabric's spawned worker; entry points refuse to run without CUDA
 unless asked for the CPU; ``chip_smoke.py`` fails and prints no result on
 a machine without a card."""
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import os
 import pkgutil
 import subprocess
@@ -19,6 +20,7 @@ from repro_torch.core.pipeline import MicrobatchRAR
 from repro_torch.core.router import train_router
 from repro_torch.experiments import build_system, run_rar_experiment
 from repro_torch.launch import serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import init_cache, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -47,6 +49,10 @@ def test_no_jax_or_reference_package_in_sys_modules():
               "repro_torch.serving.scheduler",
               "repro_torch.serving.loadgen",
               "repro_torch.core.memory_sharded",
+              "repro_torch.launch.train", "repro_torch.launch.mesh",
+              "repro_torch.launch.specs", "repro_torch.launch.analytic",
+              "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+              "repro_torch.models.sharding",
               *(f"repro_torch.configs.{m}" for m in (
                   "olmo_1b", "gemma3_27b", "deepseek_coder_33b",
                   "olmoe_1b_7b", "granite_moe_3b_a800m", "mamba2_2p7b",
@@ -92,8 +98,32 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
                                      memory.MemoryConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--requests", "4"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "olmo-1b", "--smoke", "--steps", "1"])
     assert init_params(trar.WEAK, seed=0, device="cpu")["embed"].device.type \
         == "cpu"
+
+
+def test_dry_run_loads_no_jax(tmp_path):
+    """A dry-run subprocess (the fake process group, DTensors, one pair's
+    step) loads neither JAX nor the JAX package, and importing the launch
+    plane starts no process group."""
+    code = ("import sys, runpy\n"
+            "import torch.distributed as dist\n"
+            "import repro_torch.launch.dryrun\n"
+            "assert not dist.is_initialized()\n"
+            f"sys.argv = ['dryrun', '--arch', 'mamba2-2.7b', '--shape', "
+            f"'long_500k', '--out', {str(tmp_path / 'dr.json')!r}]\n"
+            "runpy.run_module('repro_torch.launch.dryrun', "
+            "run_name='__main__')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout
+    assert "1 ok, 0 skipped, 0 failed" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -19,6 +19,7 @@ card (``tests/test_torch_cuda.py``):
   fall on an f32 rounding tie;
 * the all-probes IVF read equal to the exact scan bit for bit.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 from fractions import Fraction
 
 import jax.numpy as jnp

@@ -10,6 +10,7 @@
   and no device, even when the staged ops carried tensors.
 * An unbarriered async run, journaled, recovers to its final store.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import copy
 import os
 import shutil

@@ -9,6 +9,7 @@ f32 products in another order, up to 6 ulp apart at 1.0) and within 2 ulp
 at 1.0 on the 64-lane centroid planes; attention f32 max |diff| 2e-5, as
 ``tests/test_kernels.py`` holds the Pallas kernels.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

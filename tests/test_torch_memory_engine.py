@@ -2,6 +2,7 @@
 after the same op sequences every store field is equal and reads return
 the same rows and metadata; the bucketed engine serves the same tokens
 with the same counters."""
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ store, since JAX's ``ShardedMemory`` raises under JAX 0.9: the port's plane
 over a sharded backing must equal the port's and JAX's over a
 ``MemoryState`` after the same commits.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import dataclasses
 
 import jax.numpy as jnp

@@ -9,6 +9,7 @@ every read (ties included), and through it to JAX's ``MemoryState``
 (indices and meta exact, sims within 2 ulp); JAX's 1-shard store is
 compared where it works, its top-k reads.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ package's: the twin of ``tests/test_metrics.py``.
   shape), its shared adaptive policy, the autoscaling policy (decision for
   decision JAX's) and the supervisor tick, counted before its resize.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import threading
 import time
 

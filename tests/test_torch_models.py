@@ -2,6 +2,7 @@
 same (bridged) weights: prefill and decode logits within 1e-4, greedy
 tokens identical, embeddings at cosine >= 1 - 1e-6; a bf16 model keeps
 the MLP's gate/up products and the logits in f32 where JAX does."""
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import dataclasses
 from functools import partial
 

@@ -6,6 +6,7 @@ bridged into the port: 192 strong calls per 128 requests, as
 ``BENCH_rar_throughput.json`` records. The top-1 reads ``query``/
 ``query_batch`` against JAX's on the same stores: indices and metadata
 exact, sims within 2 ulp at 1.0."""
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ in ``tests/_torch_fabric_parts.py``, which imports torch and the port
 only, so no worker loads JAX; they fork from a fork server here (on the
 card they are spawned, ``tests/test_torch_cuda.py``).
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import functools
 import multiprocessing
 import os

@@ -11,6 +11,7 @@ decode attention in ring mode is held to JAX's ``layers.attention`` with
 the JAX model's ring ``kpos``, for windows of 0, under and over the ring's
 size, at 1e-5 (f32).
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import dataclasses
 from functools import partial
 

@@ -11,6 +11,7 @@ from the first step) within 1e-4 of the distance each leaf trained, in
 L2, and no weight beyond Adam's own bound of 2 lr a step (a gradient
 within rounding of zero takes a normalized step of any size up to lr).
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ its own closed-loop reference (per-stream Outcome streams and FM calls)
 and to JAX's open-loop run of the same trace, through the thread fabric
 and through the process fabric (whose workers import no JAX).
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import dataclasses
 import os
 

@@ -11,6 +11,7 @@ run restarts to the same store and manifest, and the fabric options
 (serve replicas, the process transport, open-loop arrivals) serve every
 request.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import copy
 import dataclasses
 import json
@@ -19,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _jax_system import jax_system
 from test_torch_fabric import check_fabric_run, record_tickets
 
 from repro.configs.rar_system import make_rar_config as jmake_cfg
@@ -46,7 +48,7 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def jsys():
-    return jsetup.build_system(verbose=False)
+    return jax_system()
 
 
 @pytest.fixture(scope="module")

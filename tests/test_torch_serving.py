@@ -9,6 +9,7 @@ fails without the engine passing ``patch_embeds`` on and sizing the cache
 for the patch positions (``ServingEngine.generate`` once sent only the
 tokens, and ``greedy_generate`` sized the cache by them).
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 from functools import partial
 
 import jax

@@ -10,6 +10,7 @@ barrier after every batch holds port against JAX: Outcome streams, store
 fields, FM calls and counters exact. Every wait in an async case passes a
 timeout, so a hang fails the case instead of eating the suite's time.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import time
 
 import numpy as np

@@ -11,6 +11,7 @@ that pad (S = 37 at chunk 16), an initial SSD state, an initial RG-LRU
 h and conv buffer, prompts shorter than the conv kernel, and each step
 function chained over a sequence against the sequence form.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

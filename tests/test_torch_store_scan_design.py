@@ -23,6 +23,7 @@ Each emulation is held against ``memory_topk.py``'s plain functions and
 the JAX oracle ``repro.kernels.ref`` on numpy inputs: rows exact, sims
 within 1e-6 (the summation order's error is pinned below that).
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,12 +11,14 @@ asserted on the port's runs with the twin's thresholds. A last case
 trains a tiny system with the port alone (a few steps of every part) to
 cover ``build_system``'s training path and its cache.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
 import torch
+from _jax_system import jax_system
 from test_torch_fabric import FABRIC_MODES, check_fabric_run, record_tickets
 
 from repro.experiments import setup as jsetup
@@ -49,7 +51,7 @@ def _rows(results):
 
 @pytest.fixture(scope="module")
 def jsys():
-    return jsetup.build_system(verbose=False)
+    return jax_system()
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ losses within 1e-5 relative; parameters after AdamW within rtol 1e-4,
 atol 2e-6 (weights of order 0.1-1; Adam's normalized step turns a 1e-7
 difference in a gradient near zero into at most a few ulps of the step).
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import dataclasses
 import os
 
@@ -311,8 +312,16 @@ def test_train_loop_reduces_loss(suite):
 
 
 def test_sharded_batch_axes_refused():
+    """``batch_axes`` takes a batch of DTensors, as the dry run places it
+    (``tests/test_torch_dryrun.py`` holds that step to the plain one); a
+    batch of plain tensors is refused: sharded training on several cards
+    is not ported."""
+    params = init_params(trar.WEAK, seed=0, device="cpu")
+    step = make_train_step(trar.WEAK, grad_accum=2, batch_axes="data")
+    batch = {"tokens": torch.zeros((4, 8), dtype=torch.int32),
+             "labels": torch.zeros((4, 8), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="sharded"):
-        make_train_step(trar.WEAK, batch_axes="data")
+        step(params, init_opt_state(params), batch)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ both dispatches at a capacity factor that drops tokens: expert indices,
 places and kept masks exactly, gates and aux within 1e-6, outputs within
 1e-5.
 """
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import dataclasses
 import types
 from functools import partial
