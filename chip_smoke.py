@@ -86,6 +86,19 @@ Phases, each of which fails the run on any error:
   baselines on both devices, then the twin's claims on the card's run;
   S4 runs the fig4 shape on the card (the 754-question pool, 5 stages,
   microbatch 16, one shuffle) and prints its numbers beside the paper's;
+* P (last, after F5): the JAX package's own fig4/fig7 runs, recorded on
+  the CPU by ``scripts/export_jax_reference.py`` with the weights they ran
+  on (``reference/``). The exported system is bridged onto the card, and
+  the card must give the record's failing pool (P1, 754 questions),
+  ``run_baselines`` rows (P2), and every ``StageResult`` of the four
+  sequential runs (P3: seeds 0 and 1 at ``retrieval_k`` 1 and 4, 5 stages)
+  and of the microbatch-16 runs (P4: the S4 shape, and the pool's first
+  120 at ``retrieval_k=4`` over 2 stages). A mismatch prints the run, its
+  first differing stage, both rows and the pool's margins (the card's
+  beside the record's) and fails the phase. fig4's ratios and fig7's split
+  print beside the record's and the paper's, with each run's requests/s;
+  ``memory_topk`` must launch at B = 1, B = 16 and k = 4, flash and decode
+  at all;
 * A (after I; A4 after S): the shadow plane's drain modes and the
   journal on the card, on R1's workload at microbatch 8. A1: async with a
   barrier after every batch, deferred at flush-every 1 and adaptive under
@@ -144,11 +157,10 @@ Phases, each of which fails the run on any error:
 
 The launch counters are zeroed right before each main-path phase (for S,
 before S1; A1-A3 together, A4 alone, F1-F4 together, M1-M4 together, F5
-alone, each of Z's serving and ring runs, T1's serving run) and read
-right after it, a
-process fabric's workers' counts added, Phase M's timed reads' and Phase
-Z's checks' launches taken out; a kernel of the path that did not launch
-fails the run.
+alone, P alone, each of Z's serving and ring runs, T1's serving run) and
+read right after it, a process fabric's workers' counts added, Phase M's
+timed reads' and Phase Z's checks' launches taken out; a kernel of the
+path that did not launch fails the run.
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": ...}``.
 
@@ -190,6 +202,7 @@ S3_POOL = 120                    # tests/test_system.py's pool
 S3_RUNS = {"mb1": {}, "mb16": dict(microbatch=16),
            "mb16_learned": dict(microbatch=16, router_kind="learned")}
 FIG4_STAGES, FIG4_MB = 5, 16
+REFERENCE = ROOT / "reference"   # Phase P: the JAX package's record
 WAIT_S = 120.0                   # the longest any shadow barrier may take
 A2_FLUSH, A2_DELAY = 4, 0.005    # A2: drain cadence and injected delay
 A3_SNAPSHOT, A3_CRASH = 3, {"wal": 5, "apply": 8}   # A3: epochs
@@ -1931,6 +1944,40 @@ def rows(results):
     return [dataclasses.astuple(r) for r in results]
 
 
+def dict_rows(results):
+    return [dataclasses.asdict(r) for r in results]
+
+
+def fig4_summary(runs, base) -> dict:
+    """``benchmarks/fig4_rar_vs_baselines.py``'s four headline ratios over
+    ``runs`` (per-stage rows of each shuffle, as dicts) against ``base``
+    (``run_baselines``' rows by method)."""
+    n_total = len(runs[0]) * runs[0][0]["n"]
+    strong = sum(sum(r["strong_calls"] for r in run) for run in runs) \
+        / len(runs)
+    aligned = sum(sum(r["aligned"] for r in run) for run in runs) / len(runs)
+    return {
+        "strong_call_reduction_vs_oracle": 1.0 - strong / max(
+            sum(r["strong_calls"] for r in base["oracle_router"]), 1),
+        "quality_vs_oracle": aligned / n_total,
+        "aligned_vs_weak": aligned / max(
+            sum(r["aligned"] for r in base["weak"]), 1),
+        "aligned_vs_cot": aligned / max(
+            sum(r["aligned"] for r in base["weak_cot"]), 1)}
+
+
+def fig7_split(runs) -> dict:
+    """``benchmarks/fig7_guide_memory.py``'s aligned guided responses a
+    stage by guide source, the mean over ``runs``."""
+    n = len(runs)
+    mem = [sum(run[i]["guides_from_memory"] for run in runs) / n
+           for i in range(len(runs[0]))]
+    fresh = [sum(run[i]["guides_fresh"] for run in runs) / n
+             for i in range(len(runs[0]))]
+    return {"memory_per_stage": mem, "fresh_per_stage": fresh,
+            "memory_total": sum(mem), "fresh_total": sum(fresh)}
+
+
 def pool_margins(torch, system, pool):
     """How far the pool sits from a flip: the smallest top-2 logit gap of
     the tiers' first answer token over its prompts (and the strong tier's
@@ -2048,16 +2095,8 @@ def phase_s(torch, ops):
     t2 = time.perf_counter()
     base = stages.run_baselines(system, pool, n_stages=FIG4_STAGES)
     n_total = FIG4_STAGES * len(pool)
-    rar_strong = sum(r.strong_calls for r in rar_res)
-    rar_aligned = sum(r.aligned for r in rar_res)
-    fig4 = {
-        "strong_call_reduction_vs_oracle": 1.0 - rar_strong / max(
-            sum(r.strong_calls for r in base["oracle_router"]), 1),
-        "quality_vs_oracle": rar_aligned / n_total,
-        "aligned_vs_weak": rar_aligned / max(
-            sum(r.aligned for r in base["weak"]), 1),
-        "aligned_vs_cot": rar_aligned / max(
-            sum(r.aligned for r in base["weak_cot"]), 1)}
+    fig4 = fig4_summary([dict_rows(rar_res)],
+                        {k: dict_rows(v) for k, v in base.items()})
     log(f"S4 fig4 on the card: {setup.POOL_NAMES[0]} pool n={len(pool)} "
         f"(pool built in {t1 - t0:.1f} s), {FIG4_STAGES} stages x 1 shuffle,"
         f" microbatch {FIG4_MB}: per-stage strong calls "
@@ -2080,6 +2119,164 @@ def phase_s(torch, ops):
         if counts[k] == 0:
             raise AssertionError(f"Phase S never launched {k}")
     return counts, results
+
+
+# ---------------------------------------------------------------------------
+# Phase P: the paper's fig4/fig7 runs against the JAX package's record
+# ---------------------------------------------------------------------------
+
+
+def p_kwargs(run: dict) -> dict:
+    """A recorded run's ``run_rar_experiment`` arguments (k = 1 is the
+    default top-1 read, as ``benchmarks/common.py`` passes it)."""
+    k = run["retrieval_k"]
+    return dict(n_stages=run["n_stages"], seed=run["seed"],
+                microbatch=run["microbatch"],
+                retrieval_k=None if k == 1 else k)
+
+
+def phase_p(torch, ops):
+    """The JAX package's trained system (``reference/jax_rar_system.npz``)
+    on the card, held to the JAX package's own runs on it
+    (``reference/jax_fig4_fig7.json``, written by
+    ``scripts/export_jax_reference.py`` on the CPU): equal failing pool
+    (P1), baselines (P2), every ``StageResult`` of the sequential runs
+    (P3) and the microbatch-16 runs (P4)."""
+    from repro_torch import bridge
+    from repro_torch.experiments import setup, stages
+    from repro_torch.kernels import memory_topk as mt
+    from repro_torch.training.checkpoint import load_checkpoint
+
+    cuda = torch.device(DEV)
+    t_phase = time.perf_counter()
+    record = json.loads((REFERENCE / "jax_fig4_fig7.json").read_text())
+    blob = load_checkpoint(str(REFERENCE / "jax_rar_system.npz"),
+                           device="cpu")
+
+    # the store reads' (B, k) a launch, beside the wrapper's own count
+    shapes: dict = {}
+    topk_cuda = mt.memory_topk_batch_padded_cuda
+
+    def noting(mem, qs, mask, k, required=mt.MASK_VALID):
+        key = (int(qs.shape[0]), int(k))
+        shapes[key] = shapes.get(key, 0) + 1
+        return topk_cuda(mem, qs, mask, k, required)
+
+    mt.memory_topk_batch_padded_cuda = noting
+    ops.reset_launches()
+    try:
+        system = setup.build_system(
+            device=cuda, cache=False, verbose=False,
+            params=bridge.system(blob, device=cuda))
+        faults = []
+
+        # P1: the failing pool
+        pool = setup.failing_pool(system, domain=record["domain"],
+                                  n=len(record["pool"]))
+        gap, margin = pool_margins(torch, system, pool)
+        rec_m = record["margins"]
+        margins = (f"card: smallest top-2 logit gap {gap:.6f}, closest "
+                   f"pairwise sim to 0.6 {margin:.3e} away; JAX record: "
+                   f"{rec_m['logit_gap']:.6f} (relative "
+                   f"{rec_m['logit_gap_rel']:.3e}), "
+                   f"{rec_m['threshold_margin']:.3e}")
+        want_pool = [tuple(c) for c in record["pool"]]
+        if pool != want_pool:
+            i = next((j for j, (a, b) in enumerate(zip(pool, want_pool))
+                      if a != b), min(len(pool), len(want_pool)))
+            faults.append(f"P1 failing pool differs from question {i}")
+            log(f"P1 MISMATCH failing_pool(domain={record['domain']}, "
+                f"n={len(want_pool)}) from question {i}: card "
+                f"{pool[i:i + 3]} vs JAX {want_pool[i:i + 3]}; {margins}")
+        else:
+            log(f"P1 failing_pool(domain={record['domain']}, "
+                f"n={len(pool)}) card == JAX record; {margins}")
+
+        # P2: the baselines
+        base = {k: dict_rows(v) for k, v in stages.run_baselines(
+            system, want_pool, n_stages=FIG4_STAGES).items()}
+
+        def firsts(b):
+            return {k: (v[0]["aligned"], v[0]["strong_calls"])
+                    for k, v in b.items()}
+        if base != record["baselines"]:
+            faults.append("P2 baselines differ")
+            log(f"P2 MISMATCH run_baselines, (aligned, strong calls) of a "
+                f"stage: card {firsts(base)} vs JAX "
+                f"{firsts(record['baselines'])}; {margins}")
+        else:
+            log(f"P2 run_baselines(n_stages={FIG4_STAGES}) card == JAX "
+                f"record, (aligned, strong calls) of a stage: "
+                f"{firsts(base)}")
+
+        # P3 (sequential) and P4 (microbatch 16): every recorded run
+        card_runs, rates = {}, {}
+        for name, run in record["runs"].items():
+            tag = "P3" if run["microbatch"] == 1 else "P4"
+            t0 = time.perf_counter()
+            res, _ = stages.run_rar_experiment(
+                system, want_pool[:run["pool_n"]], device=cuda,
+                **p_kwargs(run))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = dict_rows(res)
+            card_runs[name] = got
+            rates[name] = run["pool_n"] * run["n_stages"] / dt
+            diff = next((i for i, (g, w) in enumerate(
+                zip(got, run["stages"])) if g != w), None)
+            what = (f"{name} (pool {run['pool_n']}, {run['n_stages']} "
+                    f"stages, seed {run['seed']}, microbatch "
+                    f"{run['microbatch']}, retrieval_k {run['retrieval_k']})")
+            if diff is not None:
+                faults.append(f"{tag} {name} differs from stage {diff + 1}")
+                log(f"{tag} MISMATCH {what} at stage {diff + 1}: card "
+                    f"{got[diff]} vs JAX {run['stages'][diff]}; {margins}")
+            else:
+                log(f"{tag} {what}: every StageResult card == JAX record; "
+                    f"strong calls {[r['strong_calls'] for r in got]}, "
+                    f"aligned {[r['aligned'] for r in got]}; "
+                    f"{rates[name]:.1f} requests/s on the card (JAX on "
+                    f"the CPU: {run['cpu_requests_per_s']:.1f})")
+
+        # fig4's ratios and fig7's split: the card's, the record's, the
+        # paper's
+        for k in (1, 4):
+            seq = [card_runs[n] for n, r in record["runs"].items()
+                   if r["microbatch"] == 1 and r["retrieval_k"] == k]
+            f4, f7 = fig4_summary(seq, base), fig7_split(seq)
+            rf4, rf7 = record["fig4"][f"k{k}"], record["fig7"][f"k{k}"]
+            log(f"P fig4 k={k} over {len(seq)} shuffles, card / JAX record "
+                f"/ paper: strong-call reduction vs the oracle router "
+                f"{f4['strong_call_reduction_vs_oracle'] * 100:.2f}% / "
+                f"{rf4['strong_call_reduction_vs_oracle'] * 100:.2f}% / "
+                f"50.2%; quality {f4['quality_vs_oracle'] * 100:.2f}% / "
+                f"{rf4['quality_vs_oracle'] * 100:.2f}% / 90.5%; aligned "
+                f"x{f4['aligned_vs_weak']:.2f} / "
+                f"x{rf4['aligned_vs_weak']:.2f} vs weak (paper +349%); "
+                f"x{f4['aligned_vs_cot']:.3f} / x{rf4['aligned_vs_cot']:.3f}"
+                f" vs CoT (paper +135%)")
+            log(f"P fig7 k={k}, aligned guided responses a stage via "
+                f"memory / fresh, card: {f7['memory_per_stage']} / "
+                f"{f7['fresh_per_stage']}; JAX record: "
+                f"{rf7['memory_per_stage']} / {rf7['fresh_per_stage']}")
+    finally:
+        mt.memory_topk_batch_padded_cuda = topk_cuda
+
+    counts = ops.launch_counts()
+    seconds = time.perf_counter() - t_phase
+    log(f"P launches on the card: {counts}; memory_topk by (B, k): "
+        f"{dict(sorted(shapes.items()))}; Phase P took {seconds:.1f} s")
+    for k in ("memory_topk", "flash_attention", "decode_attention"):
+        if counts[k] == 0:
+            faults.append(f"P never launched {k}")
+    for what, hit in (("B=1", any(b == 1 for b, _ in shapes)),
+                      ("B=16", any(b == 16 for b, _ in shapes)),
+                      ("k=4", any(k == 4 for _, k in shapes))):
+        if not hit:
+            faults.append(f"P never launched memory_topk at {what}")
+    if faults:
+        raise AssertionError(f"Phase P: {faults}")
+    return counts, dict(runs=card_runs, rates=rates, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -3532,6 +3729,8 @@ def main() -> int:
     s_counts, s_results = phase_s(torch, ops)
     a4_counts, _ = phase_a4(torch, ops, s_results["system"])
     f5_counts, _ = phase_f5(torch, ops, s_results["system"])
+    del s_results
+    p_counts, _ = phase_p(torch, ops)
 
     kernels = []
     for name in SOURCES:
@@ -3543,7 +3742,8 @@ def main() -> int:
             "launches": sum(c.get(name, 0)
                             for c in (r_counts, i_counts, a_counts, f_counts,
                                       m_counts, l_counts, z_counts, t_counts,
-                                      s_counts, a4_counts, f5_counts)),
+                                      s_counts, a4_counts, f5_counts,
+                                      p_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -102,6 +102,13 @@ class MemoryState:
         """Occupancy from the ring pointer (entries are only ever added)."""
         return min(self.ptr, self.capacity)
 
+    def debug_size(self) -> int:
+        """Occupancy from the ``valid`` bits: a blocking device sync (a
+        reduction over the store), for debugging and tests. A method, not a
+        property, so the sync is loud where it is called: hot paths use
+        :attr:`size_fast` or the commit stream's host counters."""
+        return int(self.valid.sum())
+
 
 def init_memory(cfg: MemoryConfig, device="cuda") -> MemoryState:
     dev = resolve_device(device)

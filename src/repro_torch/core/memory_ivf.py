@@ -284,6 +284,9 @@ class IVFMemory:
     def size_fast(self) -> int:
         return min(self._ptr_host, self.capacity)
 
+    def debug_size(self) -> int:
+        return self.store.debug_size()
+
     # -- index maintenance ----------------------------------------------
     def _ivf_add(self, X: np.ndarray, slots: np.ndarray) -> None:
         """Online k-means + bucket update for K new rows landing at ring

@@ -194,6 +194,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     return params
 
 
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree of ``cfg`` with no storage: :func:`init_params`
+    run under a ``FakeTensorMode``, each leaf given back as a meta tensor
+    of its shape and dtype (the counterpart of JAX's abstract init)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.tree import tree_map
+    with FakeTensorMode():
+        fake = init_params(cfg, 0, device="cpu")
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
+
+
 # ===========================================================================
 # Embedding & head
 # ===========================================================================

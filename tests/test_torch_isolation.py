@@ -1,8 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module (and
 ``chip_smoke.py``) loads neither JAX nor the JAX package, and neither does
-a process fabric's spawned worker; entry points refuse to run without CUDA
-unless asked for the CPU; ``chip_smoke.py`` fails and prints no result on
-a machine without a card."""
+a process fabric's spawned worker or an example twin; entry points refuse
+to run without CUDA unless asked for the CPU; ``chip_smoke.py`` fails and
+prints no result on a machine without a card."""
 import _torch_threads  # noqa: F401  (a worker's share of the cores)
 import os
 import pkgutil
@@ -124,6 +124,33 @@ def test_dry_run_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert "BAD []" in out.stdout
     assert "1 ok, 0 skipped, 0 failed" in out.stdout
+
+
+def test_examples_load_no_jax(tmp_path):
+    """The port's example twins, run without a card, import all they need,
+    refuse to start (no ``--device cpu``), and load neither JAX nor the
+    JAX package."""
+    code = ("import runpy, sys\n"
+            "for ex in sys.argv[1:]:\n"
+            "    sys.argv = [ex]\n"
+            "    try:\n"
+            "        runpy.run_path(ex, run_name='__main__')\n"
+            "    except RuntimeError as e:\n"
+            "        assert \"device='cpu'\" in str(e), e\n"
+            "    else:\n"
+            "        raise AssertionError(ex + ' ran without a card')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print('BAD', bad)\n")
+    examples = [str(ROOT / "examples" / f"{n}_torch.py") for n in (
+        "quickstart", "serve_rar", "continual_learning_demo")]
+    env = _env()
+    env["REPRO_TORCH_CACHE"] = str(tmp_path)
+    out = subprocess.run([sys.executable, "-c", code, *examples],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

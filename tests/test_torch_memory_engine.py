@@ -92,6 +92,28 @@ def test_store_ops_match_jax(seed):
     np.testing.assert_array_equal(np.asarray(jremap), tremap.numpy())
 
 
+
+@pytest.mark.parametrize("n", [0, 7, 24, 31])
+def test_debug_size_matches_jax(n):
+    """``debug_size`` (the syncing count of ``valid``) equals JAX's and
+    ``size_fast`` on an empty store, part full, full and past the ring's
+    end."""
+    rng = np.random.default_rng(n)
+    js = jmem.init_memory(jmem.MemoryConfig(**CFG))
+    ts = tmem.init_memory(tmem.MemoryConfig(**CFG), device="cpu")
+    for i in range(0, n, 8):
+        K = min(8, n - i)
+        embs = _unit(rng, K, 16)
+        guides = rng.integers(0, 50, (K, 4)).astype(np.int32)
+        hg, hard = rng.random(K) < 0.5, rng.random(K) < 0.3
+        nows = np.arange(i + 1, i + K + 1, dtype=np.int32)
+        js = jmem.add_batch(js, jnp.asarray(embs), jnp.asarray(guides),
+                            jnp.asarray(hg), jnp.asarray(hard),
+                            jnp.asarray(nows))
+        tmem.add_batch(ts, embs, guides, hg, hard, nows)
+    assert ts.debug_size() == js.debug_size() == ts.size_fast == min(n, 24)
+
+
 @pytest.mark.parametrize("k", [1, 3, 8])
 @pytest.mark.parametrize("guides_only", [False, True])
 def test_query_topk_batch_matches_jax(k, guides_only):

@@ -344,6 +344,18 @@ def test_sharded_backing_refusals():
         ivf.grow(128)
 
 
+@pytest.mark.parametrize("n", [0, 40, 100])
+def test_debug_size_matches_jax(n):
+    """The plane's ``debug_size`` is its backing store's: JAX's and the
+    port's agree with ``size_fast`` below and past the ring's end."""
+    rng = np.random.default_rng(n)
+    j, t = _pair(64, clusters=4, probes=2)
+    if n:
+        _fill((j, t), rng, _clustered(rng, _protos(rng, 4), n))
+    assert t.debug_size() == j.debug_size() == t.size_fast == min(n, 64)
+    assert t.debug_size() == t.store.debug_size()
+
+
 # ---------------------------------------------------------------------------
 # Grow-in-place
 # ---------------------------------------------------------------------------

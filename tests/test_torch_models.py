@@ -12,19 +12,24 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs as jconfigs
 from repro.configs import llama3_8b as jllama
 from repro.configs import rar_system as jrar
 from repro.core import embedder as jemb
 from repro.models import decode_step as jdecode
 from repro.models import init_params as jinit
 from repro.models import layers as jlayers
+from repro.models import param_shapes as jparam_shapes
 from repro.models import prefill as jprefill
+import repro_torch.configs as tconfigs
 from repro_torch import bridge
 from repro_torch.configs import llama3_8b as tllama
 from repro_torch.configs import rar_system as trar
 from repro_torch.core import embedder as temb
 from repro_torch.data import tokenizer as tk
-from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models import decode_step, init_params
+from repro_torch.models import param_shapes as tparam_shapes
+from repro_torch.models import prefill
 from repro_torch.models import layers as tlayers
 
 STEPS = 2
@@ -171,3 +176,38 @@ def test_bf16_prefill_matches_jax(bf16_weak):
     want = np.asarray(_jax_run(jc, jp, jnp.asarray(tokens)))
     got = _torch_run(tc, tp, tokens)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# param_shapes: the abstract init
+# ---------------------------------------------------------------------------
+
+
+PARAM_SHAPE_CFGS = {
+    **{a: (jconfigs.get(a), tconfigs.get(a)) for a in jconfigs.all_archs()},
+    "rar-weak": (jrar.WEAK, trar.WEAK), "rar-strong": (jrar.STRONG,
+                                                       trar.STRONG),
+    "rar-smoke": (jrar.SMOKE, trar.SMOKE)}
+
+
+@pytest.mark.parametrize("name", list(PARAM_SHAPE_CFGS))
+def test_param_shapes_match_jax(name):
+    """``param_shapes`` gives JAX's abstract tree leaf for leaf (key path,
+    shape, dtype) at every arch's FULL width, as meta tensors: no
+    storage."""
+    jc, tc = PARAM_SHAPE_CFGS[name]
+    want = {jax.tree_util.keystr(p): (tuple(s.shape), str(s.dtype))
+            for p, s in jax.tree_util.tree_leaves_with_path(
+                jparam_shapes(jc))}
+    got = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}[{k!r}]")
+            return
+        assert t.device.type == "meta", path
+        got[path] = (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+
+    walk(tparam_shapes(tc), "")
+    assert got == want

@@ -209,8 +209,8 @@ def test_rar_beats_weak_baselines(runs, base):
 def test_guide_memory_populates(runs):
     _, rar = runs["seq"]
     valid = rar.memory.valid.cpu().numpy()
-    assert valid.sum() > 0
-    assert rar.memory.size_fast == valid.sum()
+    assert rar.memory.debug_size() > 0
+    assert rar.memory.size_fast == rar.memory.debug_size() == valid.sum()
     assert rar.memory.has_guide.cpu().numpy()[valid].any()
 
 
