@@ -99,6 +99,22 @@ Phases, each of which fails the run on any error:
   print beside the record's and the paper's, with each run's requests/s;
   ``memory_topk`` must launch at B = 1, B = 16 and k = 4, flash and decode
   at all;
+* G (after P, on P's system): the JAX package's own runs of the paper's
+  fig6 (domain 1, 359 questions) and fig5 (domain 2, 675) and of its Table
+  I, recorded on the CPU by ``scripts/export_jax_domains.py``. For each
+  domain the card must give the record's failing pool (G1; its margins
+  beside the record's), baselines (G2) and every ``StageResult`` of the
+  sequential run (G3: seed 0, k = 1, 5 stages) and of the microbatch-16
+  run (G4: ``retrieval_k=4``); fig4's summary of G3 prints beside the
+  record's. G5 runs Table I (``benchmarks/table1_generalization.py``'s
+  procedure, twinned by :func:`table1`): a guide memory populated on domain
+  0's 754-question pool and one on each target read by the target's
+  questions (``memory.query(..., guides_only=True)``, the top-1 kernel at
+  B = 1 with ``required`` = 3: 2,068 reads), each question's retrieved row,
+  guided flag and weak answer equal to the record's and its similarity
+  within G_SIM_TOL, the counts and percentages equal. Each run's
+  requests/s prints beside the record's CPU rate, the store reads by
+  (kernel, B, k, ``required``) at the end;
 * A (after I; A4 after S): the shadow plane's drain modes and the
   journal on the card, on R1's workload at microbatch 8. A1: async with a
   barrier after every batch, deferred at flush-every 1 and adaptive under
@@ -157,8 +173,8 @@ Phases, each of which fails the run on any error:
 
 The launch counters are zeroed right before each main-path phase (for S,
 before S1; A1-A3 together, A4 alone, F1-F4 together, M1-M4 together, F5
-alone, P alone, each of Z's serving and ring runs, T1's serving run) and
-read right after it, a process fabric's workers' counts added, Phase M's
+alone, P alone, G alone, each of Z's serving and ring runs, T1's serving
+run) and read right after it, a process fabric's workers' counts added, Phase M's
 timed reads' and Phase Z's checks' launches taken out; a kernel of the
 path that did not launch fails the run.
 The last lines are the kernels' JSON, the card's name and power limit,
@@ -203,6 +219,9 @@ S3_RUNS = {"mb1": {}, "mb16": dict(microbatch=16),
            "mb16_learned": dict(microbatch=16, router_kind="learned")}
 FIG4_STAGES, FIG4_MB = 5, 16
 REFERENCE = ROOT / "reference"   # Phase P: the JAX package's record
+G_DOMAINS = (1, 2)               # G: fig6 (HS psychology), fig5 (moral)
+G_SIM_TOL = 1e-5                 # G5: a read's similarity against JAX's
+T1_THRESHOLD = 0.1               # Table I: the transfer threshold
 WAIT_S = 120.0                   # the longest any shadow barrier may take
 A2_FLUSH, A2_DELAY = 4, 0.005    # A2: drain cadence and injected delay
 A3_SNAPSHOT, A3_CRASH = 3, {"wal": 5, "apply": 8}   # A3: epochs
@@ -1996,6 +2015,110 @@ def pool_margins(torch, system, pool):
     return gap, float(np.abs(sims - 0.6).min())
 
 
+def t1_populate(system, pool):
+    """``populate_memory`` of ``benchmarks/table1_generalization.py``: a
+    standard RAR run (2 stages, seed 0) over ``pool``; its guide memory."""
+    from repro_torch.experiments.stages import run_rar_experiment
+    _, rar = run_rar_experiment(system, pool, n_stages=2, seed=0,
+                                device=system.weak.engine.device)
+    return rar.memory
+
+
+def t1_guided_eval(system, pool, memory):
+    """``guided_eval`` of ``benchmarks/table1_generalization.py`` over the
+    port: the weak tier answers each question with the guide read from
+    ``memory`` (guides only, kept at similarity >= 0.1). Returns the count
+    aligned with the strong tier, a ``[row, sim, guided, weak answer]``
+    row a question, and the strong tier's answers."""
+    import numpy as np
+
+    from repro_torch.core import memory as mem
+    from repro_torch.experiments.stages import _batched_answers, _prompts
+    prompts, _ = _prompts(system, pool)
+    strong_ref = _batched_answers(system.strong, prompts)
+    embs = system.embed_many(prompts)
+    guided, reads = [], []
+    for p, e in zip(prompts, embs):
+        q = mem.query(memory, e, guides_only=True)
+        sim = float(q.sim)
+        reads.append([int(q.index), sim, sim >= T1_THRESHOLD])
+        if sim >= T1_THRESHOLD:
+            g = q.guide.cpu().numpy()
+            g = g[g != 0]
+            guided.append(np.concatenate([p[:1], g, p[1:]]).astype(np.int32))
+        else:
+            guided.append(p)
+    ans = np.zeros(len(pool), np.int64)
+    for ln in {len(p) for p in guided}:
+        idx = [i for i, p in enumerate(guided) if len(p) == ln]
+        ans[idx] = system.weak.answer_batch(np.stack([guided[i]
+                                                      for i in idx]))
+    for r, a in zip(reads, ans):
+        r.append(int(a))
+    aligned = int(np.sum((ans == strong_ref) & (ans >= 0)))
+    return aligned, reads, [int(a) for a in strong_ref]
+
+
+def table1(system, source, targets: dict) -> dict:
+    """Table I as ``benchmarks/table1_generalization.py``'s ``main`` runs
+    it: guides of a memory populated on ``source`` (domain 0) read for each
+    of ``targets`` ({domain: pool}) beside its own memory's and none; the
+    record's layout (``scripts/export_jax_domains.py``)."""
+    import numpy as np
+
+    from repro_torch.experiments.setup import POOL_NAMES
+    from repro_torch.experiments.stages import _batched_answers, _prompts
+    src_memory = t1_populate(system, source)
+    out, rows, sims = {}, [], []
+    for d, pool in targets.items():
+        n, name = len(pool), POOL_NAMES[d]
+        prompts, _ = _prompts(system, pool)
+        inter, inter_reads, strong = t1_guided_eval(system, pool, src_memory)
+        intra, intra_reads, _ = t1_guided_eval(system, pool,
+                                               t1_populate(system, pool))
+        weak = _batched_answers(system.weak, prompts)
+        unguided = int(np.sum((weak == np.asarray(strong)) & (weak >= 0)))
+        sims += [r[1] for r in inter_reads + intra_reads]
+        rows += [{"target": name, "guide_source": g,
+                  "diff_from_strong_pct": round(100.0 * (n - a) / n, 1)}
+                 for g, a in ((POOL_NAMES[0], inter), (name, intra),
+                              ("unguided", unguided))]
+        out[str(d)] = dict(target=name, n=n, inter=inter, intra=intra,
+                           unguided=unguided, strong=strong,
+                           reads={"inter": inter_reads,
+                                  "intra": intra_reads})
+    return dict(source_domain=0, source_n=len(source), source_stages=2,
+                xfer_threshold=T1_THRESHOLD, targets=out, rows=rows,
+                threshold_margin=float(np.abs(np.asarray(sims)
+                                              - T1_THRESHOLD).min()))
+
+
+def t1_faults(got: dict, want: dict, sim_tol: float) -> list[str]:
+    """Where a Table I run differs from the record: counts, the
+    percentages, the strong answers, and each read's row, guided flag and
+    weak answer exactly, its similarity within ``sim_tol``."""
+    faults = []
+    if got["rows"] != want["rows"]:
+        faults.append(f"rows {got['rows']} vs {want['rows']}")
+    for d, w in want["targets"].items():
+        g = got["targets"][d]
+        for k in ("n", "inter", "intra", "unguided", "strong"):
+            if g[k] != w[k]:
+                faults.append(f"target {d} {k} differs" + (
+                    "" if k == "strong" else f": {g[k]} vs {w[k]}"))
+        for tag, want_reads in w["reads"].items():
+            if len(g["reads"][tag]) != len(want_reads):
+                faults.append(f"target {d} {tag}: {len(g['reads'][tag])} "
+                              f"reads, not {len(want_reads)}")
+            for i, (a, b) in enumerate(zip(g["reads"][tag], want_reads)):
+                if [a[0], a[2], a[3]] != [b[0], b[2], b[3]] or \
+                        abs(a[1] - b[1]) > sim_tol:
+                    faults.append(f"target {d} {tag} question {i}: "
+                                  f"[row, sim, guided, weak] {a} vs {b}")
+                    break
+    return faults
+
+
 def phase_s(torch, ops):
     from repro_torch.experiments import setup, stages
 
@@ -2135,6 +2258,19 @@ def p_kwargs(run: dict) -> dict:
                 retrieval_k=None if k == 1 else k)
 
 
+def reference_system(torch):
+    """The JAX package's trained system (``reference/jax_rar_system.npz``)
+    bridged onto the card."""
+    from repro_torch import bridge
+    from repro_torch.experiments import setup
+    from repro_torch.training.checkpoint import load_checkpoint
+    blob = load_checkpoint(str(REFERENCE / "jax_rar_system.npz"),
+                           device="cpu")
+    return setup.build_system(device=torch.device(DEV), cache=False,
+                              verbose=False,
+                              params=bridge.system(blob, device=DEV))
+
+
 def phase_p(torch, ops):
     """The JAX package's trained system (``reference/jax_rar_system.npz``)
     on the card, held to the JAX package's own runs on it
@@ -2142,16 +2278,12 @@ def phase_p(torch, ops):
     ``scripts/export_jax_reference.py`` on the CPU): equal failing pool
     (P1), baselines (P2), every ``StageResult`` of the sequential runs
     (P3) and the microbatch-16 runs (P4)."""
-    from repro_torch import bridge
     from repro_torch.experiments import setup, stages
     from repro_torch.kernels import memory_topk as mt
-    from repro_torch.training.checkpoint import load_checkpoint
 
     cuda = torch.device(DEV)
     t_phase = time.perf_counter()
     record = json.loads((REFERENCE / "jax_fig4_fig7.json").read_text())
-    blob = load_checkpoint(str(REFERENCE / "jax_rar_system.npz"),
-                           device="cpu")
 
     # the store reads' (B, k) a launch, beside the wrapper's own count
     shapes: dict = {}
@@ -2165,9 +2297,7 @@ def phase_p(torch, ops):
     mt.memory_topk_batch_padded_cuda = noting
     ops.reset_launches()
     try:
-        system = setup.build_system(
-            device=cuda, cache=False, verbose=False,
-            params=bridge.system(blob, device=cuda))
+        system = reference_system(torch)
         faults = []
 
         # P1: the failing pool
@@ -2276,7 +2406,191 @@ def phase_p(torch, ops):
             faults.append(f"P never launched memory_topk at {what}")
     if faults:
         raise AssertionError(f"Phase P: {faults}")
-    return counts, dict(runs=card_runs, rates=rates, seconds=seconds)
+    return counts, dict(runs=card_runs, rates=rates, seconds=seconds,
+                        system=system)
+
+
+# ---------------------------------------------------------------------------
+# Phase G: the paper's fig5, fig6 and Table I against the JAX package's record
+# ---------------------------------------------------------------------------
+
+
+def phase_g(torch, ops, system):
+    """The JAX package's runs of fig6 (domain 1), fig5 (domain 2) and Table
+    I on the exported system (``reference/jax_fig5_fig6_table1.json``,
+    written by ``scripts/export_jax_domains.py`` on the CPU), replayed on
+    Phase P's bridged ``system``: equal failing pools (G1), baselines (G2),
+    every ``StageResult`` of the sequential runs (G3) and the microbatch-16
+    runs (G4), and Table I (G5: counts, percentages, and each question's
+    retrieved row, guided flag and weak answer; its similarity within
+    G_SIM_TOL)."""
+    from repro_torch.experiments import setup, stages
+    from repro_torch.kernels import memory_topk as mt
+
+    cuda = torch.device(DEV)
+    t_phase = time.perf_counter()
+    record = json.loads((REFERENCE / "jax_fig5_fig6_table1.json")
+                        .read_text())
+    source = [tuple(c) for c in json.loads(
+        (REFERENCE / "jax_fig4_fig7.json").read_text())["pool"]]
+
+    # the store reads' (kernel, B, k, required) a launch
+    shapes: dict = {}
+    topk_cuda, top1_cuda = (mt.memory_topk_batch_padded_cuda,
+                            mt.memory_top1_batch_padded_cuda)
+
+    def note(key):
+        shapes[key] = shapes.get(key, 0) + 1
+
+    def topk(mem, qs, mask, k, required=mt.MASK_VALID):
+        note(("memory_topk", int(qs.shape[0]), int(k), int(required)))
+        return topk_cuda(mem, qs, mask, k, required)
+
+    def top1(mem, qs, mask, required=mt.MASK_VALID):
+        note(("memory_top1", int(qs.shape[0]), 1, int(required)))
+        return top1_cuda(mem, qs, mask, required)
+
+    def firsts(b):
+        return {k: (v[0]["aligned"], v[0]["strong_calls"])
+                for k, v in b.items()}
+
+    mt.memory_topk_batch_padded_cuda = topk
+    mt.memory_top1_batch_padded_cuda = top1
+    ops.reset_launches()
+    faults, pools, rates, summary = [], {}, {}, {}
+    try:
+        for d in G_DOMAINS:
+            rec = record["domains"][str(d)]
+            fig = f"{rec['figure']} ({rec['pool_name']}, domain {d})"
+
+            # G1: the failing pool and its margins
+            pool = setup.failing_pool(system, domain=d)
+            want = [tuple(c) for c in rec["pool"]]
+            pools[d] = want
+            gap, margin = pool_margins(torch, system, want)
+            rm = rec["margins"]
+            margins = (f"card: smallest top-2 logit gap {gap:.6f}, closest "
+                       f"pairwise sim to 0.6 {margin:.3e} away; JAX record: "
+                       f"{rm['logit_gap']:.6f} (relative "
+                       f"{rm['logit_gap_rel']:.3e}), "
+                       f"{rm['threshold_margin']:.3e}")
+            if pool != want:
+                i = next((j for j, (a, b) in enumerate(zip(pool, want))
+                          if a != b), min(len(pool), len(want)))
+                faults.append(f"G1 {fig} failing pool differs from "
+                              f"question {i}")
+                log(f"G1 MISMATCH {fig} failing pool from question {i}: "
+                    f"card {pool[i:i + 3]} vs JAX {want[i:i + 3]}; {margins}")
+            else:
+                log(f"G1 {fig}: failing_pool (n={len(pool)}) card == JAX "
+                    f"record; {margins}")
+
+            # G2: the baselines
+            base = {k: dict_rows(v) for k, v in stages.run_baselines(
+                system, want, n_stages=FIG4_STAGES).items()}
+            if base != rec["baselines"]:
+                faults.append(f"G2 {fig} baselines differ")
+                log(f"G2 MISMATCH {fig} run_baselines, (aligned, strong "
+                    f"calls) of a stage: card {firsts(base)} vs JAX "
+                    f"{firsts(rec['baselines'])}; {margins}")
+            else:
+                log(f"G2 {fig} run_baselines(n_stages={FIG4_STAGES}) card "
+                    f"== JAX record, (aligned, strong calls) of a stage: "
+                    f"{firsts(base)}")
+
+            # G3 (sequential) and G4 (microbatch 16)
+            for name, run in rec["runs"].items():
+                tag = "G3" if run["microbatch"] == 1 else "G4"
+                t0 = time.perf_counter()
+                res, _ = stages.run_rar_experiment(system, want, device=cuda,
+                                                   **p_kwargs(run))
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = dict_rows(res)
+                rates[(d, name)] = run["pool_n"] * run["n_stages"] / dt
+                what = (f"{fig} {name} ({run['pool_n']} questions, "
+                        f"{run['n_stages']} stages, seed {run['seed']}, "
+                        f"microbatch {run['microbatch']}, retrieval_k "
+                        f"{run['retrieval_k']})")
+                diff = next((i for i, (g, w) in enumerate(
+                    zip(got, run["stages"])) if g != w), None)
+                if diff is not None:
+                    faults.append(f"{tag} {fig} {name} differs from stage "
+                                  f"{diff + 1}")
+                    log(f"{tag} MISMATCH {what} at stage {diff + 1}: card "
+                        f"{got[diff]} vs JAX {run['stages'][diff]}; "
+                        f"{margins}")
+                    continue
+                log(f"{tag} {what}: every StageResult card == JAX record; "
+                    f"strong calls {[r['strong_calls'] for r in got]}, "
+                    f"aligned {[r['aligned'] for r in got]}; "
+                    f"{rates[(d, name)]:.1f} requests/s on the card (JAX on "
+                    f"the CPU: {run['cpu_requests_per_s']:.1f})")
+                if name == "seq_seed0_k1":
+                    f4, rf4 = fig4_summary([got], base), rec["fig4"]
+                    summary[d] = f4
+                    log(f"G {rec['figure']} summary, card / JAX record / "
+                        f"paper (fig4's): strong-call reduction vs the "
+                        f"oracle router "
+                        f"{f4['strong_call_reduction_vs_oracle'] * 100:.2f}%"
+                        f" / {rf4['strong_call_reduction_vs_oracle'] * 100:.2f}"
+                        f"% / 50.2%; quality "
+                        f"{f4['quality_vs_oracle'] * 100:.2f}% / "
+                        f"{rf4['quality_vs_oracle'] * 100:.2f}% / 90.5%; "
+                        f"aligned x{f4['aligned_vs_weak']:.2f} / "
+                        f"x{rf4['aligned_vs_weak']:.2f} vs weak (paper "
+                        f"+349%); x{f4['aligned_vs_cot']:.3f} / "
+                        f"x{rf4['aligned_vs_cot']:.3f} vs CoT (paper +135%)")
+
+        # G5: Table I from domain 0's recorded pool onto both domains
+        want = record["table1"]
+        t1_before = shapes.get(("memory_top1", 1, 1, 3), 0)
+        t0 = time.perf_counter()
+        got = table1(system, source, pools)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        t1_reads = shapes.get(("memory_top1", 1, 1, 3), 0) - t1_before
+        n_reads = 2 * sum(len(p) for p in pools.values())
+        t1_margin = (f"closest read to the {T1_THRESHOLD} threshold "
+                     f"{got['threshold_margin']:.4f} away on the card, "
+                     f"{want['threshold_margin']:.4f} in the record")
+        bad = t1_faults(got, want, G_SIM_TOL)
+        if bad:
+            faults.append(f"G5 Table I differs: {bad[:4]}")
+            log(f"G5 MISMATCH Table I: {bad}; {t1_margin}")
+        else:
+            log(f"G5 Table I card == JAX record (counts, percentages, "
+                f"{n_reads} reads' rows, guided flags and weak answers; "
+                f"sims within {G_SIM_TOL}); {t1_margin}; {dt:.1f} s on the "
+                f"card (JAX on the CPU: {want['cpu_seconds']:.1f} s with "
+                f"its reads twice)")
+        for d, t in got["targets"].items():
+            pct = [r["diff_from_strong_pct"] for r in got["rows"]
+                   if r["target"] == t["target"]]
+            log(f"G5 Table I {t['target']} (n={t['n']}), aligned inter / "
+                f"intra / unguided: {t['inter']} / {t['intra']} / "
+                f"{t['unguided']}; difference from the strong FM {pct}% "
+                f"(paper: intra < inter <= unguided)")
+        if t1_reads != n_reads:
+            faults.append(f"G5 made {t1_reads} top-1 reads at B = 1, "
+                          f"required = 3, not {n_reads}")
+    finally:
+        mt.memory_topk_batch_padded_cuda = topk_cuda
+        mt.memory_top1_batch_padded_cuda = top1_cuda
+
+    counts = ops.launch_counts()
+    seconds = time.perf_counter() - t_phase
+    log(f"G launches on the card: {counts}; store reads by (kernel, B, k, "
+        f"required): {dict(sorted(shapes.items()))}; Phase G took "
+        f"{seconds:.1f} s")
+    for k in ("memory_topk", "memory_top1", "flash_attention",
+              "decode_attention"):
+        if counts[k] == 0:
+            faults.append(f"G never launched {k}")
+    if faults:
+        raise AssertionError(f"Phase G: {faults}")
+    return counts, dict(rates=rates, summary=summary, table1=got,
+                        seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -3730,7 +4044,8 @@ def main() -> int:
     a4_counts, _ = phase_a4(torch, ops, s_results["system"])
     f5_counts, _ = phase_f5(torch, ops, s_results["system"])
     del s_results
-    p_counts, _ = phase_p(torch, ops)
+    p_counts, p_results = phase_p(torch, ops)
+    g_counts, _ = phase_g(torch, ops, p_results.pop("system"))
 
     kernels = []
     for name in SOURCES:
@@ -3743,7 +4058,7 @@ def main() -> int:
                             for c in (r_counts, i_counts, a_counts, f_counts,
                                       m_counts, l_counts, z_counts, t_counts,
                                       s_counts, a4_counts, f5_counts,
-                                      p_counts)),
+                                      p_counts, g_counts)),
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
