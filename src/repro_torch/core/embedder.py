@@ -24,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.data import tokenizer as tk
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -106,6 +107,7 @@ def embed(cfg: EmbedderConfig, params: Any, tokens,
         raise ValueError("embed: a PAD precedes a non-PAD token; prompts "
                          "must be right-padded")
     dev = params["embed"].device
+    tracing.count("host_sync.embed", 2)          # the two uploads
     toks = torch.as_tensor(host, dtype=torch.int64, device=dev)
     mask = torch.as_tensor(live, device=dev)
     B, S = toks.shape

@@ -46,7 +46,7 @@ import numpy as np
 from repro_torch.data import tokenizer as tk
 from repro_torch.data.tokenizer import Vocab
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import ServingEngine, fetch
 
 
 @dataclasses.dataclass
@@ -76,8 +76,8 @@ class FMTier:
         """prompts: (B, Lp) uniform-length question prompts ending in ANS.
         Returns (B,) answer indices in [0, 4) (-1 if the model emitted a
         non-option token)."""
-        out = self.engine.generate({"tokens": np.asarray(prompts)},
-                                   max_new=1).cpu().numpy()
+        out = fetch(self.engine.generate({"tokens": np.asarray(prompts)},
+                                         max_new=1))
         ans = out[:, 0] - tk.OPTION_A
         ans[(ans < 0) | (ans > 3)] = -1
         return ans
@@ -95,8 +95,8 @@ class FMTier:
                         guide_len: int) -> np.ndarray:
         """requests: (B, Lr) guide-request prompts. Returns (B, guide_len)
         guide token blocks: [GUIDE_START, hints..., GUIDE_END, PAD...]."""
-        hints = self.engine.generate({"tokens": np.asarray(requests)},
-                                     max_new=2).cpu().numpy()
+        hints = fetch(self.engine.generate({"tokens": np.asarray(requests)},
+                                           max_new=2))
         return self._pack_guides(hints, guide_len)
 
     def generate_guides_many(self, requests: list[np.ndarray],

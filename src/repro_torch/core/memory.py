@@ -56,6 +56,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.memory_topk import (DEFAULT_BLOCK_C, MASK_GUIDE,
@@ -177,6 +178,8 @@ def publish(*tensors: torch.Tensor) -> None:
 
 
 def _on(state: MemoryState, x, dtype) -> torch.Tensor:
+    if not torch.is_tensor(x) or x.device != state.device:
+        tracing.count("host_sync.memory_upload")
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                            device=state.device).to(dtype)
 
@@ -199,6 +202,7 @@ def add_batch(state, embs, guides, has_guide, hard, now):
         raise ValueError(f"microbatch commit of {K} entries exceeds "
                          f"memory capacity {C}")
     idx = (state.ptr + torch.arange(K, device=state.device)) % C
+    tracing.count("host_sync.memory_write")      # the scalar's upload
     state.emb[idx] = 0.0
     state.emb[idx, :embs.shape[1]] = embs
     bits = MASK_VALID + MASK_GUIDE * _on(state, has_guide, torch.int32)
@@ -304,6 +308,7 @@ class _MetaViews:
         if not torch.is_tensor(self.sim):
             return self
         bits = self.sim.contiguous().view(torch.int32)[..., None]
+        tracing.count("host_sync.memory_read")
         host = torch.cat([bits, self.meta], dim=-1).cpu().numpy()
         sim = np.ascontiguousarray(host[..., 0]).view(np.float32).reshape(
             host.shape[:-1])

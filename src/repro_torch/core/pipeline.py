@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import decisions
 from repro_torch.core import memory as mem
 from repro_torch.core import shadow as shq
@@ -184,6 +185,7 @@ class MicrobatchRAR(RAR):
     # ------------------------------------------------------------------
     # Serve plane
     # ------------------------------------------------------------------
+    @tracing.traced("pipeline.step")
     def process_batch(self, prompts: list[np.ndarray],
                       guide_requests: list[np.ndarray],
                       keys: list | None = None,
@@ -211,11 +213,16 @@ class MicrobatchRAR(RAR):
             nows = list(nows)
             self.now = max(self.now, max(nows))   # keep the mirror sane
 
-        if embs is None and self.embed_batch_fn is not None:
-            embs = self.embed_batch_fn(prompts)
-        elif embs is None:
-            embs = np.stack([np.asarray(self.embed_fn(p)) for p in prompts])
-        embs = np.asarray(embs.cpu() if hasattr(embs, "cpu") else embs)
+        with tracing.span("pipeline.embed"):
+            if embs is None and self.embed_batch_fn is not None:
+                embs = self.embed_batch_fn(prompts)
+            elif embs is None:
+                embs = np.stack([np.asarray(self.embed_fn(p))
+                                 for p in prompts])
+            if hasattr(embs, "cpu"):
+                tracing.count("host_sync.embed")
+                embs = embs.cpu()
+            embs = np.asarray(embs)
 
         # ---- phase 1: one batched top-k memory read (snapshot at batch
         # start). One dispatch (kernel + fused metadata epilogue) and one
@@ -225,7 +232,7 @@ class MicrobatchRAR(RAR):
         # pointer is captured under the same lock: re-probe flag updates
         # staged later carry it so the commit buffer can drop them if an
         # intervening drain epoch evicts the target slot.
-        with self.shadow.store_lock:
+        with tracing.span("pipeline.read"), self.shadow.store_lock:
             q = self._lookup_batch(embs)
             ptr_snap = self._ptr_base + self.commit_stream.commits
 
@@ -233,10 +240,11 @@ class MicrobatchRAR(RAR):
         # the same code path the sequential controller runs per request).
         # The strong tier's breaker feeds in as a routing input: while it
         # is open, hard/shadow requests land in the degraded groups.
-        part = decisions.partition(
-            q, nows, self.cfg,
-            lambda i: self.route_weak_fn(np.asarray(embs[i]), keys[i]),
-            strong_ok=self._strong_ok())
+        with tracing.span("pipeline.partition"):
+            part = decisions.partition(
+                q, nows, self.cfg,
+                lambda i: self.route_weak_fn(np.asarray(embs[i]), keys[i]),
+                strong_ok=self._strong_ok())
         outcomes: list[Outcome | None] = [None] * B
 
         # ---- phase 3: one strong sweep (memory_hard + shadow requests).
@@ -246,90 +254,94 @@ class MicrobatchRAR(RAR):
         # (the routing peek raced the breaker), the whole strong side of
         # the batch degrades mid-flight — no errored requests.
         items: list[shq.ShadowItem] = []
-        strong_reqs = part.hard + [i for i, _ in part.shadow]
-        if strong_reqs:
-            try:
-                strong_ans = _answers(self.strong, [prompts[i]
-                                                    for i in strong_reqs])
-            except TierUnavailableError:
-                part.hard_degraded += part.hard
-                part.deferred += part.shadow
-                part.hard, part.shadow = [], []
-            else:
-                for i, a in zip(part.hard, strong_ans):
-                    outcomes[i] = Outcome(int(a), "strong", 1,
-                                          "memory_hard")
-                for (i, reprobe), a in zip(part.shadow,
-                                           strong_ans[len(part.hard):]):
-                    out = Outcome(int(a), "strong", 1, shq.PENDING)
-                    outcomes[i] = out
-                    items.append(shq.ShadowItem(
-                        seq=self.shadow.next_seq(), now=nows[i],
-                        prompt=prompts[i], guide_request=guide_requests[i],
-                        emb=np.asarray(embs[i]), strong_ans=int(a),
-                        outcome=out, reprobe_index=reprobe,
-                        ptr_snapshot=ptr_snap))
+        with tracing.span("pipeline.strong"):
+            strong_reqs = part.hard + [i for i, _ in part.shadow]
+            if strong_reqs:
+                try:
+                    strong_ans = _answers(
+                        self.strong, [prompts[i] for i in strong_reqs])
+                except TierUnavailableError:
+                    part.hard_degraded += part.hard
+                    part.deferred += part.shadow
+                    part.hard, part.shadow = [], []
+                else:
+                    for i, a in zip(part.hard, strong_ans):
+                        outcomes[i] = Outcome(int(a), "strong", 1,
+                                              "memory_hard")
+                    for (i, reprobe), a in zip(part.shadow,
+                                               strong_ans[len(part.hard):]):
+                        out = Outcome(int(a), "strong", 1, shq.PENDING)
+                        outcomes[i] = out
+                        items.append(shq.ShadowItem(
+                            seq=self.shadow.next_seq(), now=nows[i],
+                            prompt=prompts[i],
+                            guide_request=guide_requests[i],
+                            emb=np.asarray(embs[i]), strong_ans=int(a),
+                            outcome=out, reprobe_index=reprobe,
+                            ptr_snapshot=ptr_snap))
 
         # ---- phase 4: one weak *serve* sweep (guided hits, bare hits,
         # router passthroughs). Shadow weak probes are not serve work and
         # run in the drain instead.
-        weak_prompts: list[np.ndarray] = []
-        weak_tags: list[tuple[str, int]] = []
-        for i in part.guide:
-            weak_prompts.append(splice_guides(
-                prompts[i], select_guides(q.sim[i], q.has_guide[i],
-                                          q.guide[i],
-                                          self.cfg.sim_threshold,
-                                          self.cfg.max_guides)))
-            weak_tags.append(("guide", i))
-        for i in part.skill:
-            weak_prompts.append(prompts[i])
-            weak_tags.append(("skill", i))
-        for i in part.router:
-            weak_prompts.append(prompts[i])
-            weak_tags.append(("router", i))
-        # degraded groups ride the same weak sweep (appended after the
-        # regular groups, so non-degraded batches are byte-identical to
-        # the pre-resilience sweep order)
-        for i in part.hard_degraded:
-            weak_prompts.append(prompts[i])
-            weak_tags.append(("hard_degraded", i))
-        deferred_reprobe = dict(part.deferred)
-        for i, _ in part.deferred:
-            weak_prompts.append(prompts[i])
-            weak_tags.append(("deferred", i))
-        if weak_prompts:
-            weak_ans = _answers(self.weak, weak_prompts)
-            for (tag, i), a in zip(weak_tags, weak_ans):
-                a = int(a)
-                if tag == "guide":
-                    outcomes[i] = Outcome(a, "weak", 0, "memory_guide",
-                                          guide_source="memory")
-                elif tag == "skill":
-                    outcomes[i] = Outcome(a, "weak", 0, "memory_skill")
-                elif tag == "hard_degraded":
-                    outcomes[i] = Outcome(a, "weak", 0,
-                                          "memory_hard_degraded")
-                elif tag == "deferred":
-                    # weak serves now; the suppressed strong probe parks
-                    # until the breaker closes (replay_deferred)
-                    out = Outcome(a, "weak", 0, "shadow_deferred")
-                    outcomes[i] = out
-                    self.deferred_probes.append(shq.ShadowItem(
-                        seq=self.shadow.next_seq(), now=nows[i],
-                        prompt=prompts[i],
-                        guide_request=guide_requests[i],
-                        emb=np.asarray(embs[i]), strong_ans=-1,
-                        outcome=out,
-                        reprobe_index=deferred_reprobe[i],
-                        ptr_snapshot=ptr_snap, strong_calls=0))
-                    self.probes_deferred += 1
-                else:
-                    outcomes[i] = Outcome(a, "weak", 0, "router_weak")
+        with tracing.span("pipeline.weak"):
+            weak_prompts: list[np.ndarray] = []
+            weak_tags: list[tuple[str, int]] = []
+            for i in part.guide:
+                weak_prompts.append(splice_guides(
+                    prompts[i], select_guides(q.sim[i], q.has_guide[i],
+                                              q.guide[i],
+                                              self.cfg.sim_threshold,
+                                              self.cfg.max_guides)))
+                weak_tags.append(("guide", i))
+            for i in part.skill:
+                weak_prompts.append(prompts[i])
+                weak_tags.append(("skill", i))
+            for i in part.router:
+                weak_prompts.append(prompts[i])
+                weak_tags.append(("router", i))
+            # degraded groups ride the same weak sweep (appended after the
+            # regular groups, so non-degraded batches are byte-identical to
+            # the pre-resilience sweep order)
+            for i in part.hard_degraded:
+                weak_prompts.append(prompts[i])
+                weak_tags.append(("hard_degraded", i))
+            deferred_reprobe = dict(part.deferred)
+            for i, _ in part.deferred:
+                weak_prompts.append(prompts[i])
+                weak_tags.append(("deferred", i))
+            if weak_prompts:
+                weak_ans = _answers(self.weak, weak_prompts)
+                for (tag, i), a in zip(weak_tags, weak_ans):
+                    a = int(a)
+                    if tag == "guide":
+                        outcomes[i] = Outcome(a, "weak", 0, "memory_guide",
+                                              guide_source="memory")
+                    elif tag == "skill":
+                        outcomes[i] = Outcome(a, "weak", 0, "memory_skill")
+                    elif tag == "hard_degraded":
+                        outcomes[i] = Outcome(a, "weak", 0,
+                                              "memory_hard_degraded")
+                    elif tag == "deferred":
+                        # weak serves now; the suppressed strong probe parks
+                        # until the breaker closes (replay_deferred)
+                        out = Outcome(a, "weak", 0, "shadow_deferred")
+                        outcomes[i] = out
+                        self.deferred_probes.append(shq.ShadowItem(
+                            seq=self.shadow.next_seq(), now=nows[i],
+                            prompt=prompts[i],
+                            guide_request=guide_requests[i],
+                            emb=np.asarray(embs[i]), strong_ans=-1,
+                            outcome=out,
+                            reprobe_index=deferred_reprobe[i],
+                            ptr_snapshot=ptr_snap, strong_calls=0))
+                        self.probes_deferred += 1
+                    else:
+                        outcomes[i] = Outcome(a, "weak", 0, "router_weak")
 
         # ---- phase 5: hand the shadow work to the queue. Inline mode
         # drains here; deferred/async return after the serve sweeps alone.
-        self.shadow.submit(items)
+        with tracing.span("pipeline.shadow"):
+            self.shadow.submit(items)
         return outcomes
 
     # ------------------------------------------------------------------

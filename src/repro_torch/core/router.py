@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.training.train_step import value_and_grad
 
@@ -27,10 +28,12 @@ class LearnedRouter:
     threshold: float = 0.5
 
     def prob_weak_ok(self, emb) -> torch.Tensor:
+        tracing.count("host_sync.route")
         e = torch.as_tensor(np.asarray(emb, np.float32), device=self.w.device)
         return torch.sigmoid(e @ self.w + self.b)
 
     def route_weak(self, emb) -> bool:
+        tracing.count("host_sync.route")
         return bool(self.prob_weak_ok(emb) >= self.threshold)
 
 

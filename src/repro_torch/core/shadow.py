@@ -54,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.memory import CommitBuffer, StoreLock
 from repro_torch.core.rar import Outcome
 from repro_torch.serving.metrics import MetricsRegistry
@@ -411,7 +412,8 @@ class ShadowQueue:
     def _drain(self, items: list[ShadowItem]) -> None:
         stale_batches = max(1, self._staleness_at_take)
         self._probe_calls_last = 0
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        opened = tracing.begin("shadow.drain", t0)
         try:
             if self.fault_plan is not None:
                 self.fault_plan.fire("drain")
@@ -421,11 +423,15 @@ class ShadowQueue:
             if self.drain_policy is not None and self.device is not None \
                     and self.device.type == "cuda":
                 # the policy fits seconds of device work, not of launches
+                tracing.count("host_sync.drain_policy")
                 torch.cuda.current_stream(self.device).synchronize()
         except BaseException:
+            tracing.end(opened)
             self._requeue(items)
             raise
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        tracing.end(opened, t1)
+        dt = (t1 - t0) / 1e9
         self.items_drained += len(items)
         self.drains += 1
         self.last_drain_now = max(self.last_drain_now, self._max_now(items))

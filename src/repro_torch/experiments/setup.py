@@ -27,6 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import rar_system
 from repro_torch.core import embedder as emb
 from repro_torch.core.fm import FMTier
@@ -66,7 +67,9 @@ class TrainedSystem:
         padded = np.zeros((len(prompts), L), np.int32)
         for i, p in enumerate(prompts):
             padded[i, :len(p)] = p
-        return self.embed_batch_fn(padded).cpu().numpy()
+        out = self.embed_batch_fn(padded)
+        tracing.count("host_sync.embed")
+        return out.cpu().numpy()
 
 
 def _sync(device: torch.device) -> None:

@@ -27,6 +27,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
+
 Params = dict[str, Any]
 
 
@@ -289,38 +291,44 @@ def moe(params: Params, x: torch.Tensor, *, experts_per_token: int,
     B, S, D = x.shape
     E = params["w_gate"].shape[0]
     k = experts_per_token
-    gate_vals, expert_idx, pos, keep, capacity, aux = moe_route(
-        params, x, k, capacity_factor)
+    with tracing.span("moe.route"):
+        gate_vals, expert_idx, pos, keep, capacity, aux = moe_route(
+            params, x, k, capacity_factor)
 
-    if dispatch == "dense":
-        pos_oh = F.one_hot(torch.where(keep, pos, capacity), capacity + 1
-                           )[..., :capacity].float()              # (B,S,k,C)
-        oh = F.one_hot(expert_idx, E).float()
-        disp = torch.einsum("bske,bskc->bsec", oh, pos_oh)
-        comb = torch.einsum("bske,bskc,bsk->bsec", oh, pos_oh, gate_vals)
-        expert_in = torch.einsum("bsec,bsd->becd", disp,
-                                 x.float()).to(x.dtype)
-    else:
-        safe_pos = torch.where(keep, pos, capacity)
-        bidx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, k)
-        buf = torch.zeros((B, E, capacity + 1, D), dtype=x.dtype,
-                          device=x.device)
-        buf = buf.index_put((bidx, expert_idx, safe_pos),
-                            x[:, :, None, :].expand(B, S, k, D),
-                            accumulate=True)
-        expert_in = buf[:, :, :capacity]                          # (B,E,C,D)
+    with tracing.span("moe.dispatch"):
+        if dispatch == "dense":
+            pos_oh = F.one_hot(torch.where(keep, pos, capacity), capacity + 1
+                               )[..., :capacity].float()          # (B,S,k,C)
+            oh = F.one_hot(expert_idx, E).float()
+            disp = torch.einsum("bske,bskc->bsec", oh, pos_oh)
+            comb = torch.einsum("bske,bskc,bsk->bsec", oh, pos_oh, gate_vals)
+            expert_in = torch.einsum("bsec,bsd->becd", disp,
+                                     x.float()).to(x.dtype)
+        else:
+            safe_pos = torch.where(keep, pos, capacity)
+            bidx = torch.arange(B, device=x.device)[:, None, None].expand(
+                B, S, k)
+            buf = torch.zeros((B, E, capacity + 1, D), dtype=x.dtype,
+                              device=x.device)
+            buf = buf.index_put((bidx, expert_idx, safe_pos),
+                                x[:, :, None, :].expand(B, S, k, D),
+                                accumulate=True)
+            expert_in = buf[:, :, :capacity]                      # (B,E,C,D)
+        xe = expert_in.transpose(0, 1).reshape(E, B * capacity, D)
 
-    xe = expert_in.transpose(0, 1).reshape(E, B * capacity, D)
-    gate = _bmm_f32(xe, params["w_gate"])
-    up = _bmm_f32(xe, params["w_up"])
-    h = (F.silu(gate) * up).to(x.dtype)
-    expert_out = _bmm_f32(h, params["w_down"]).to(x.dtype).reshape(
-        E, B, capacity, D).transpose(0, 1)                        # (B,E,C,D)
+    with tracing.span("moe.experts"):
+        gate = _bmm_f32(xe, params["w_gate"])
+        up = _bmm_f32(xe, params["w_up"])
+        h = (F.silu(gate) * up).to(x.dtype)
+        expert_out = _bmm_f32(h, params["w_down"]).to(x.dtype).reshape(
+            E, B, capacity, D).transpose(0, 1)                    # (B,E,C,D)
 
-    if dispatch == "dense":
-        out = torch.einsum("bsec,becd->bsd", comb, expert_out.float())
-    else:
-        gathered = expert_out[bidx, expert_idx,
-                              safe_pos.clamp(max=capacity - 1)]   # (B,S,k,D)
-        out = (gathered.float() * gate_vals[..., None]).sum(2)
-    return out.to(x.dtype), aux
+    with tracing.span("moe.combine"):
+        if dispatch == "dense":
+            out = torch.einsum("bsec,becd->bsd", comb, expert_out.float())
+        else:
+            gathered = expert_out[bidx, expert_idx,                 # (B,S,k,D)
+                                  safe_pos.clamp(max=capacity - 1)]
+            out = (gathered.float() * gate_vals[..., None]).sum(2)
+        out = out.to(x.dtype)
+    return out, aux

@@ -51,6 +51,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -215,6 +216,7 @@ def param_shapes(cfg: ModelConfig) -> Params:
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
     dt = param_dtype(cfg)
     x = params["embed"][tokens].to(dt)
+    tracing.count("host_sync.model")            # the scale's upload
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
 
 

@@ -16,6 +16,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.config import ModelConfig
 
@@ -50,6 +51,13 @@ def greedy_generate(cfg: ModelConfig, params: Any, batch: dict,
     return torch.stack(outs, dim=1)
 
 
+def fetch(out: torch.Tensor) -> np.ndarray:
+    """A call's tokens on the host: the wait each engine call ends in."""
+    with tracing.span("engine.fetch"):
+        tracing.count("host_sync.engine")
+        return out.cpu().numpy()
+
+
 class ServingEngine:
     """Greedy serving for one model, with the JAX engine's counters."""
 
@@ -69,10 +77,12 @@ class ServingEngine:
             self.calls += calls
             self.tokens_processed += tokens
 
+    @tracing.traced("engine.call")
     def generate(self, batch: dict, max_new: int) -> torch.Tensor:
         """Serve one uniform-length batch (``tokens`` and any frontend
         input, each key passed on to the model); returns (B, max_new)
         int32 on the engine's device."""
+        tracing.count("host_sync.engine_upload")
         tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64,
                                  device=self.device)
         key = (tuple(tokens.shape), max_new) + tuple(sorted(
@@ -108,7 +118,7 @@ class ServingEngine:
                               for i in idxs] +
                              [np.asarray(prompts[idxs[0]], np.int32)] *
                              (Bp - B))
-            got = self.generate({"tokens": batch}, max_new).cpu().numpy()
+            got = fetch(self.generate({"tokens": batch}, max_new))
             self._bill(-(Bp - B), 0)
             out[idxs] = got[:B]
         return out
