@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run on any error:
 
-* build: compiles the six CUDA kernels from ``src/repro_torch/kernels/
+* build: compiles the seven CUDA kernels from ``src/repro_torch/kernels/
   csrc`` with ``nvcc`` (one process per source, in parallel);
 * K: every kernel against its plain PyTorch version on the card at the
   main path's shapes (the RAR tiers, the embedder, llama3-8b, the guide
@@ -23,6 +23,16 @@ Phases, each of which fails the run on any error:
   over 1500 frames and its cross reads, f32 at 96 and 256); the ptxas
   report of the attention kernels (registers and spills) after the
   build;
+* E (after K): the dropless MoE's grouped expert products
+  (``csrc/moe_grouped.cu``) against their plain versions at the
+  olmoe.answer.azcode cell's call shapes (B x S = 10 x 1,536 and 4 x
+  4,096, OLMoE's widths, bf16), with one expert in every token's top k,
+  on skewed groups (half the slots in one expert, 20 experts empty) and at
+  a decode step (S = 1); the grouped layer against the buffer path within
+  two bf16 roundings, under sync debug mode "error"; each product's time
+  beside its bound and the buffer path's batched products; one traced
+  OLMoE call with its four ``moe.*`` spans and ``moe.grouped`` once a
+  layer;
 * R: ``MicrobatchRAR`` serving the ``rar_throughput`` workload (pool 64,
   2 passes, microbatch 8 and 32) on the card and on the CPU in the same
   process, with identical Outcome streams, FM calls and stores required
@@ -269,6 +279,11 @@ D_CASES = (("llama3-8b", "decode_32k", False),
            ("recurrentgemma-2b", "decode_32k", False),
            ("whisper-medium", "train_4k", False))
 D_TIMEOUT_S = 400
+# E: the grouped MoE products at the olmoe.answer.azcode cell's call
+# shapes (B, S) of 16,384 tokens, OLMoE's widths, and a decode step
+E_SHAPES = ((10, 1536), (4, 4096), (2, 1))
+E_WIDTHS = dict(D=2048, F=1024, E=64, k=8)
+E_SEED = 29
 # Z3: (arch, decode_window = ring slots, decode steps, B, depth cut)
 Z_RINGS = (("olmoe-1b-7b", 256, 300, 2, None),
            ("gemma3-27b", 1024, 1100, 2, 6))
@@ -1668,6 +1683,234 @@ def phase_z(torch, ops):
         add(c)
     log(f"Z took {time.perf_counter() - t_phase:.1f} s; launches {counts}")
     return counts, results
+
+
+# ---------------------------------------------------------------------------
+# Phase E: the dropless MoE's grouped expert products
+# ---------------------------------------------------------------------------
+
+
+def e_err(got, want):
+    """max |got - want| over want's largest magnitude, both as f32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() /
+                 want.abs().max().clamp(min=1e-30))
+
+
+def e_layer(torch, L, params, x, k):
+    """The grouped layer (under sync debug mode "error": no host sync
+    anywhere in it) and the buffer path's (``scatter`` at capacity S, the
+    batched products) on ``x``; (grouped, buffer) outputs."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = L.moe(params, x, experts_per_token=k, capacity_factor=8.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    want, _ = L._moe_buffer(params, x, experts_per_token=k,
+                            capacity_factor=8.0, dispatch="scatter")
+    return got, want
+
+
+def phase_e(torch, ops):
+    """E1: ``csrc/moe_grouped.cu`` against its plain versions at the
+    olmoe.answer.azcode cell's call shapes (OLMoE's widths, bf16), on
+    skewed groups (one expert routed by every token; an expert with half
+    the slots and 20 with none) and at a decode step; the grouped layer
+    against the buffer path, within two bf16 roundings of the largest
+    output, with no host sync. E2: each product's device time beside its
+    bound and the buffer path's batched products at 131,072 slots. E3:
+    one OLMoE call (16 layers, 4 x 4,096 tokens) traced: the four
+    ``moe.*`` spans and ``moe.grouped`` 16 times, 32 kernel launches.
+    Returns the kernel's rows (Phase K's format) and the numbers."""
+    from repro_torch import configs, tracing
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEV)
+    D, F, E, k = (E_WIDTHS[n] for n in ("D", "F", "E", "k"))
+    gen = torch.Generator(device=dev).manual_seed(E_SEED)
+    params = L.moe_init(gen, D, F, E, torch.bfloat16, dev)
+    tol = 2 ** -7
+    rows, res = [], {}
+
+    def products(tag, xs, offsets):
+        h = ops.moe_gate_up(xs, params["w_gate"], params["w_up"], offsets)
+        h_plain = mg.gate_up_plain(xs, params["w_gate"], params["w_up"],
+                                   offsets)
+        y = ops.moe_down(h_plain, params["w_down"], offsets)
+        y_plain = mg.down_plain(h_plain, params["w_down"], offsets)
+        errs = (e_err(h, h_plain), e_err(y, y_plain))
+        log(f"E1 {tag}: N={xs.shape[0]} gate/up err {errs[0]:.3e}, down err "
+            f"{errs[1]:.3e} (of the largest; limit {tol:.3e})")
+        if max(errs) > tol or not (torch.isfinite(h).all() and
+                                   torch.isfinite(y).all()):
+            raise AssertionError(f"E1 {tag}: the grouped kernel differs from "
+                                 f"its plain version: {errs}")
+        return max(errs)
+
+    for B, S in E_SHAPES:
+        x = torch.randn((B, S, D), generator=gen, device=dev).bfloat16()
+        biased = dict(params, router=params["router"].clone())
+        biased["router"][:, 3] += 0.05
+        for tag, p, xx in ((f"B={B} S={S}", params, x),
+                           (f"B={B} S={S} expert 3 in every token", biased,
+                            x + 1)):
+            gates, idx, _ = L.moe_gates(p, xx, k)
+            order, offsets = L.moe_sort(idx, E)
+            counts = offsets.diff()
+            xs = xx.reshape(-1, D).index_select(0, order // k)
+            err = products(tag, xs, offsets)
+            ys = ops.moe_down(ops.moe_gate_up(xs, p["w_gate"], p["w_up"],
+                                              offsets), p["w_down"], offsets)
+            inv = torch.empty_like(order).scatter_(
+                0, order, torch.arange(order.numel(), device=dev))
+            gk = gates.reshape(-1, k)
+            comb = ops.moe_combine(ys, inv, gk)
+            cerr = e_err(comb, mg.combine_plain(ys, inv, gk))
+            log(f"E1 {tag}: combine err {cerr:.3e}"
+                f"{' (bit-identical)' if cerr == 0 else ''}")
+            if cerr > tol:
+                raise AssertionError(f"E1 {tag}: the combine kernel differs "
+                                     f"from its plain version by {cerr}")
+            got, want = e_layer(torch, L, p, xx, k)
+            lerr = e_err(got, want)
+            log(f"E1 {tag}: slots a expert {int(counts.min())}-"
+                f"{int(counts.max())}; the grouped layer against the buffer "
+                f"path {lerr:.3e} of the largest (limit {2 * tol:.3e})")
+            if lerr > 2 * tol:
+                raise AssertionError(f"E1 {tag}: the grouped layer differs "
+                                     f"from the buffer path by {lerr}")
+            rows.append(dict(key=f"OLMoE {tag} bf16", err=err))
+    # skewed groups: expert 0 takes half the slots, 1-20 none, the rest
+    # ragged (counts not multiples of the 128-row tile, some of one slot)
+    N, empty = 16384 * k, min(20, E // 3)
+    rng = torch.Generator().manual_seed(E_SEED)
+    rest = torch.rand(E - 1 - empty, generator=rng) ** 3
+    rest = (rest / rest.sum() * (N // 2 - (E - 1 - empty))).long() + 1
+    rest[-1] += N // 2 - int(rest.sum())
+    counts = torch.cat([torch.tensor([N // 2]),
+                        torch.zeros(empty, dtype=torch.long), rest])
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long),
+                         counts.cumsum(0)]).to(torch.int32).to(dev)
+    xs = torch.randn((N, D), generator=gen, device=dev).bfloat16()
+    err = products("skewed groups", xs, offsets)
+    rows.append(dict(key=f"skewed groups N={N} bf16", err=err))
+
+    # E2: times at the cell's 131,072 slots (B=4, S=4096)
+    B, S = 4, 4096
+    x = torch.randn((B, S, D), generator=gen, device=dev).bfloat16()
+    _, idx, _ = L.moe_gates(params, x, k)
+    order, offsets = L.moe_sort(idx, E)
+    xs = x.reshape(-1, D).index_select(0, order // k)
+    h = ops.moe_gate_up(xs, params["w_gate"], params["w_up"], offsets)
+    N = xs.shape[0]
+    b_gu = 2 * 2 * N * D * F / BF16_FLOPS * 1e3
+    b_dn = 2 * N * F * D / BF16_FLOPS * 1e3
+    t_gu = time_ms(torch, lambda: ops.moe_gate_up(
+        xs, params["w_gate"], params["w_up"], offsets), iters=20)
+    t_dn = time_ms(torch, lambda: ops.moe_down(h, params["w_down"], offsets),
+                   iters=20)
+    d_gu, _ = device_ms(torch, lambda: ops.moe_gate_up(
+        xs, params["w_gate"], params["w_up"], offsets), "e_gate_up", iters=10)
+    d_dn, _ = device_ms(torch, lambda: ops.moe_down(
+        h, params["w_down"], offsets), "e_down", iters=10)
+    ys = ops.moe_down(h, params["w_down"], offsets)
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=dev))
+    gk = L.moe_gates(params, x, k)[0].reshape(-1, k)
+    t_cb = time_ms(torch, lambda: ops.moe_combine(ys, inv, gk), iters=20)
+    t_cb_plain = time_ms(torch, lambda: mg.combine_plain(ys, inv, gk),
+                         iters=5)
+    b_cb = (ys.numel() * 2 + B * S * D * 2 + inv.numel() * 8 +
+            gk.numel() * 4) / HBM_BYTES_PER_S * 1e3
+    t_plain = time_ms(torch, lambda: mg.down_plain(mg.gate_up_plain(
+        xs, params["w_gate"], params["w_up"], offsets), params["w_down"],
+        offsets), iters=3, warmup=1)
+    xe = torch.randn((E, B * S, D), generator=gen, device=dev).bfloat16()
+
+    def bmm_path():
+        gate = L._bmm_f32(xe, params["w_gate"])
+        up = L._bmm_f32(xe, params["w_up"])
+        hh = (torch.nn.functional.silu(gate) * up).to(xe.dtype)
+        return L._bmm_f32(hh, params["w_down"]).to(xe.dtype)
+    t_bmm = time_ms(torch, bmm_path, iters=5, warmup=1)
+    del xe
+    t_grouped_layer = time_ms(torch, lambda: L.moe(
+        params, x, experts_per_token=k, capacity_factor=8.0), iters=10)
+    t_buffer_layer = time_ms(torch, lambda: L._moe_buffer(
+        params, x, experts_per_token=k, capacity_factor=8.0,
+        dispatch="scatter"), iters=3, warmup=1)
+    fmt = (lambda v: "not measured" if v is None else f"{v:.4f}")
+    log(f"E2 B={B} S={S} N={N}: gate/up {t_gu:.4f} ms (device "
+        f"{fmt(d_gu)}; bound {b_gu:.4f}, {100 * b_gu / t_gu:.1f}% of the "
+        f"peak), down {t_dn:.4f} ms (device {fmt(d_dn)}; bound {b_dn:.4f}, "
+        f"{100 * b_dn / t_dn:.1f}%); both {t_gu + t_dn:.4f} against "
+        f"{b_gu + b_dn:.4f} ms; combine {t_cb:.4f} ms (bound {b_cb:.4f}, "
+        f"bytes; plain {t_cb_plain:.4f}); plain {t_plain:.4f} ms; the "
+        f"buffer path's "
+        f"batched products over every slot {t_bmm:.4f} ms; the layer "
+        f"grouped {t_grouped_layer:.4f} ms, buffer path {t_buffer_layer:.4f}"
+        f" ms")
+    res.update(combine_ms=t_cb, combine_bound_ms=b_cb,
+               combine_plain_ms=t_cb_plain)
+    res.update(gate_up_ms=t_gu, down_ms=t_dn, gate_up_device_ms=d_gu,
+               down_device_ms=d_dn, bound_ms=b_gu + b_dn, plain_ms=t_plain,
+               bmm_ms=t_bmm, layer_ms=t_grouped_layer,
+               buffer_layer_ms=t_buffer_layer)
+    main = dict(key=f"OLMoE B={B} S={S} N={N} bf16",
+                err=max(r["err"] for r in rows),
+                ms=t_gu + t_dn, plain_ms=t_plain, library_ms=t_bmm,
+                bound_ms=b_gu + b_dn, bound_by="operations",
+                device_ms=None if d_gu is None or d_dn is None else
+                d_gu + d_dn)
+    del params, x, xs, h, ys
+    torch.cuda.empty_cache()
+
+    # E3: one OLMoE call, traced
+    cfg = dataclasses.replace(configs.get("olmoe-1b-7b"),
+                              moe_capacity_factor=8.0)
+    lm = init_params(cfg, E_SEED, device=dev)
+    engine = ServingEngine(cfg, lm)
+    toks = torch.randint(1, cfg.vocab_size, (4, 4096), generator=gen,
+                         device=dev).int()
+    engine.generate({"tokens": toks}, 1).cpu()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    tracing.enable()
+    try:
+        t0 = time.perf_counter()
+        engine.generate({"tokens": toks}, 1).cpu()
+        dt = time.perf_counter() - t0
+        trace = tracing.collect()
+    finally:
+        tracing.disable()
+    names = {}
+    for sp in trace.spans:
+        if sp.name.startswith("moe."):
+            names[sp.name] = names.get(sp.name, 0) + 1
+    grouped = sum(n for (name, _), n in trace.counts.items()
+                  if name == "moe.grouped")
+    launches = ops.launch_counts()
+    launches = (launches["moe_grouped"], launches["moe_combine"])
+    log(f"E3 olmoe-1b-7b one call of 4 x 4096 tokens in {dt * 1e3:.1f} ms "
+        f"(traced, host clock): spans {names}, moe.grouped {grouped}, "
+        f"moe_grouped / moe_combine launches {launches}")
+    want = {n: cfg.num_layers for n in ("moe.route", "moe.dispatch",
+                                        "moe.experts", "moe.combine")}
+    if names != want or grouped != cfg.num_layers or \
+            launches != (2 * cfg.num_layers, cfg.num_layers):
+        raise AssertionError(f"E3: spans {names}, moe.grouped {grouped}, "
+                             f"launches {launches}")
+    res.update(call_ms=dt * 1e3, spans=names, grouped=grouped)
+    del lm, engine
+    torch.cuda.empty_cache()
+    log(f"E took {time.perf_counter() - t_phase:.1f} s")
+    return {"moe_grouped": [main] + [dict(r, ms=None) for r in rows]}, res
 
 
 # ---------------------------------------------------------------------------
@@ -3764,7 +4007,8 @@ def phase_m(torch, ops, tiers, r_results, i_results):
     log(f"M launches on the card (main path; the timed reads' {timing} "
         f"taken out): {counts}; Phase M took "
         f"{time.perf_counter() - t_phase:.1f} s")
-    for k in ops.KERNELS:
+    for k in ("memory_topk", "memory_top1", "ivf_route", "ivf_scan",
+              "flash_attention", "decode_attention"):
         if counts[k] == 0:
             raise AssertionError(f"Phase M never launched {k}")
     return counts, results
@@ -3775,7 +4019,8 @@ def phase_m(torch, ops, tiers, r_results, i_results):
 # ---------------------------------------------------------------------------
 
 OUR_KERNELS = ("topk_scan_kernel", "top1_scan_kernel", "route_kernel",
-               "ivf_scan_kernel", "flash_kernel", "decode_kernel")
+               "ivf_scan_kernel", "flash_kernel", "decode_kernel",
+               "moe_grouped_kernel", "moe_combine_kernel")
 
 
 def _trace_summary(torch, tag, fn, n_steps):
@@ -3969,7 +4214,8 @@ MAIN_SHAPE = {"memory_topk": "C=4096 E=384 B=32 k=1",
               "flash_attention": "llama3-8b B=1 Sq=300 H=32 KV=8 hd=128 "
                                  "bfloat16 window=0 causal=True",
               "decode_attention": "llama3-8b B=1 M=308 cache_len=301 H=32 "
-                                  "KV=8 hd=128 bfloat16 window=0"}
+                                  "KV=8 hd=128 bfloat16 window=0",
+              "moe_grouped": "OLMoE B=4 S=4096 N=131072 bf16"}
 SOURCES = {"memory_topk": ("src/repro_torch/kernels/csrc/memory_topk.cu",
                            "src/repro/kernels/memory_topk.py:345"),
            "memory_top1": ("src/repro_torch/kernels/csrc/memory_top1.cu",
@@ -3984,7 +4230,10 @@ SOURCES = {"memory_topk": ("src/repro_torch/kernels/csrc/memory_topk.cu",
                "src/repro/kernels/flash_attention.py:85"),
            "decode_attention": (
                "src/repro_torch/kernels/csrc/decode_attention.cu",
-               "src/repro/kernels/decode_attention.py:75")}
+               "src/repro/kernels/decode_attention.py:75"),
+           # no Pallas kernel: JAX leaves the expert products to XLA
+           "moe_grouped": ("src/repro_torch/kernels/csrc/moe_grouped.cu",
+                           "none (src/repro/models/layers.py::moe)")}
 
 
 def ptxas_summary(build) -> list[str]:
@@ -4030,6 +4279,8 @@ def main() -> int:
         log(f"ptxas {line}")
 
     rows = phase_k(torch)
+    e_rows, _ = phase_e(torch, ops)
+    rows.update(e_rows)
     r_counts, r_results, tiers = phase_r(torch, ops)
     i_counts, i_results = phase_i(torch, ops, tiers, r_results)
     a_counts, _ = phase_a(torch, ops, tiers, r_results)

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("memory_topk.cu", "memory_top1.cu", "ivf_route.cu",
-           "ivf_scan.cu", "flash_attention.cu", "decode_attention.cu")
+           "ivf_scan.cu", "flash_attention.cu", "decode_attention.cu",
+           "moe_grouped.cu")
 HEADERS = ("attention_common.cuh", "store_scan.cuh", "ivf_common.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,6 +62,8 @@ _SIGNATURES = {
                             _I, _I, _F, _I, _P),
     "decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _I, _I, _P, _P, _P),
+    "moe_grouped_gemm": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "moe_combine": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -21,6 +21,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import memory_ivf as _ivf
 from repro_torch.kernels import memory_topk as _mt
+from repro_torch.kernels import moe_grouped as _moe
 from repro_torch.kernels.memory_topk import MASK_VALID
 
 #: each kernel's launch counter: (module, attribute)
@@ -29,7 +30,9 @@ KERNELS = {"memory_topk": (_mt, "launches"),
            "ivf_route": (_ivf, "launches"),
            "ivf_scan": (_ivf, "scan_launches"),
            "flash_attention": (_fa, "launches"),
-           "decode_attention": (_da, "launches")}
+           "decode_attention": (_da, "launches"),
+           "moe_grouped": (_moe, "launches"),
+           "moe_combine": (_moe, "combine_launches")}
 
 
 def _on_cuda(t: torch.Tensor, *inputs) -> bool:
@@ -196,3 +199,31 @@ def ivf_scan_batch(scores, cids, cidmap, members, assign, emb, mask, hard,
     return _ivf.ivf_scan_batch_plain(scores, cids, cidmap, members, assign,
                                      emb, mask, hard, added_at, guide, qs, k,
                                      required, cs, csp)
+
+
+def moe_gate_up(a, w_gate, w_up, offsets):
+    """The experts' gate and up products over slots sorted by expert:
+    h (N, F) = silu(a w_gate[e]) * (a w_up[e]) in f32, rounded once
+    (:func:`repro_torch.kernels.moe_grouped.gate_up_plain`)."""
+    if _on_cuda(a, w_gate, w_up):
+        return _moe.gate_up_cuda(a, w_gate, w_up, offsets)
+    return _moe.gate_up_plain(a, w_gate, w_up, offsets)
+
+
+def moe_down(h, w_down, offsets):
+    """The experts' down product over slots sorted by expert: (N, D) =
+    h w_down[e] in f32, rounded once
+    (:func:`repro_torch.kernels.moe_grouped.down_plain`)."""
+    if _on_cuda(h, w_down):
+        return _moe.down_cuda(h, w_down, offsets)
+    return _moe.down_plain(h, w_down, offsets)
+
+
+def moe_combine(y, inv, gates):
+    """Each token's k slot outputs weighted by its gates, summed in slot
+    order in f32 and rounded once: (T, D) from y (N, D) in expert order,
+    inv (T k,) and gates (T, k)
+    (:func:`repro_torch.kernels.moe_grouped.combine_plain`)."""
+    if _on_cuda(y, gates):
+        return _moe.combine_cuda(y, inv, gates)
+    return _moe.combine_plain(y, inv, gates)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tracing
+from repro_torch.kernels import ops
 
 Params = dict[str, Any]
 
@@ -249,16 +250,11 @@ def _top_k_lowest_first(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_route(params: Params, x: torch.Tensor, k: int,
-              capacity_factor: float):
-    """The routing half of :func:`moe`: the f32 router's softmax, its top
-    k (ties to the lower expert), the gates renormalised over the k, the
-    Switch aux loss; each (token, slot) takes the next place of its
-    expert's buffer in the row, in (S, k) order, and past the capacity
-    ``max(1, int(cf * k * S / E))`` it is dropped (gate 0). Returns
-    (gate_vals (B, S, k) f32, expert_idx (B, S, k), pos (B, S, k), keep
-    (B, S, k) bool, capacity, aux)."""
-    B, S, _ = x.shape
+def moe_gates(params: Params, x: torch.Tensor, k: int):
+    """The routing half of :func:`moe` that both paths share: the f32
+    router's softmax, its top k (ties to the lower expert), the gates
+    renormalised over the k, the Switch aux loss. Returns (gate_vals
+    (B, S, k) f32, expert_idx (B, S, k), aux)."""
     E = params["router"].shape[1]
     probs = torch.softmax(x.float() @ params["router"], dim=-1)   # (B, S, E)
     gate_vals, expert_idx = _top_k_lowest_first(probs, k)         # (B, S, k)
@@ -267,13 +263,94 @@ def moe_route(params: Params, x: torch.Tensor, k: int,
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(expert_idx, E).float().sum(2).mean(dim=(0, 1))
     aux = E * (me * ce).sum()
+    return gate_vals, expert_idx, aux
 
-    capacity = max(1, int(capacity_factor * k * S / E))
+
+def moe_capacity(capacity_factor: float, k: int, S: int, E: int) -> int:
+    """Places of an expert's buffer in a row: ``max(1, int(cf * k * S /
+    E))``."""
+    return max(1, int(capacity_factor * k * S / E))
+
+
+def moe_route(params: Params, x: torch.Tensor, k: int,
+              capacity_factor: float):
+    """The routing of :func:`moe`'s buffer paths: :func:`moe_gates`, then
+    each (token, slot) takes the next place of its expert's buffer in the
+    row, in (S, k) order, and past the capacity (:func:`moe_capacity`) it
+    is dropped (gate 0). Returns (gate_vals (B, S, k) f32, expert_idx
+    (B, S, k), pos (B, S, k), keep (B, S, k) bool, capacity, aux)."""
+    B, S, _ = x.shape
+    E = params["router"].shape[1]
+    gate_vals, expert_idx, aux = moe_gates(params, x, k)
+    capacity = moe_capacity(capacity_factor, k, S, E)
     flat = F.one_hot(expert_idx, E).reshape(B, S * k, E)
     pos = ((flat.cumsum(1) - flat) * flat).sum(-1).reshape(B, S, k)
     keep = pos < capacity
     return (gate_vals * keep.to(gate_vals.dtype), expert_idx, pos, keep,
             capacity, aux)
+
+
+def moe_sort(expert_idx: torch.Tensor, num_experts: int):
+    """The B * S * k flat slots grouped by expert, on the device with no
+    read-back: (order (N,), the flat slots by a stable sort of their
+    experts; offsets (E + 1,) int32, expert e's slots at ``order[offsets[e]:
+    offsets[e + 1]]``, from ``searchsorted`` over ``arange(E + 1)``)."""
+    experts, order = torch.sort(expert_idx.reshape(-1), stable=True)
+    offsets = torch.searchsorted(experts, torch.arange(
+        num_experts + 1, dtype=experts.dtype, device=experts.device))
+    return order, offsets.to(torch.int32)
+
+
+def _grouped_engages(params: Params, x: torch.Tensor, k: int,
+                     capacity_factor: float, dispatch: str) -> bool:
+    """Whether :func:`moe` runs :func:`moe_grouped`: a dropless inference
+    call (:func:`_dropless_inference`) on the card."""
+    return (x.device.type == "cuda"
+            and _dropless_inference(params, x, k, capacity_factor, dispatch))
+
+
+def _dropless_inference(params: Params, x: torch.Tensor, k: int,
+                        capacity_factor: float, dispatch: str) -> bool:
+    """A ``scatter`` call in bf16, autograd not recording, at a capacity
+    no slot can overflow (each token picks k distinct experts, so an
+    expert gets at most S slots of a row)."""
+    S, E = x.shape[1], params["w_gate"].shape[0]
+    experts = (params["w_gate"], params["w_up"], params["w_down"])
+    return (dispatch == "scatter" and x.dtype == torch.bfloat16
+            and all(w.dtype == torch.bfloat16 for w in experts)
+            and not _recorded(x, params["router"], *experts)
+            and moe_capacity(capacity_factor, k, S, E) >= S)
+
+
+def moe_grouped(params: Params, x: torch.Tensor, *, experts_per_token: int):
+    """Dropless MoE over the routed slots only: (output (B, S, D) in x's
+    dtype, aux). The slots are sorted by expert (:func:`moe_sort`), their
+    token rows gathered into one (N, D) matrix, the expert products run
+    grouped over it (``ops.moe_gate_up``, ``ops.moe_down``: the hand-written
+    kernel on the card), and each token's k slot outputs are read back by
+    the inverse permutation and summed by their gates in f32, in slot
+    order, rounded once (``ops.moe_combine``). The semantics of
+    :func:`moe`'s ``scatter`` path at a capacity of S or more."""
+    B, S, D = x.shape
+    E = params["w_gate"].shape[0]
+    k = experts_per_token
+    tracing.count("moe.grouped")
+    with tracing.span("moe.route"):
+        gate_vals, expert_idx, aux = moe_gates(params, x, k)
+        order, offsets = moe_sort(expert_idx, E)
+
+    with tracing.span("moe.dispatch"):
+        xs = x.reshape(B * S, D).index_select(0, order // k)      # (N, D)
+
+    with tracing.span("moe.experts"):
+        h = ops.moe_gate_up(xs, params["w_gate"], params["w_up"], offsets)
+        ys = ops.moe_down(h, params["w_down"], offsets)           # (N, D)
+
+    with tracing.span("moe.combine"):
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.numel(), device=order.device))
+        out = ops.moe_combine(ys, inv, gate_vals.reshape(B * S, k))
+    return out.view(B, S, D), aux
 
 
 def moe(params: Params, x: torch.Tensor, *, experts_per_token: int,
@@ -282,12 +359,28 @@ def moe(params: Params, x: torch.Tensor, *, experts_per_token: int,
     JAX package: returns (output (B, S, D) in x's dtype, the Switch
     load-balance aux loss, f32 scalar). Routing is :func:`moe_route`.
 
-    ``scatter`` (the default) writes the kept tokens into a (B, E, C + 1,
-    D) buffer whose last place takes the dropped ones and is sliced off,
-    and gathers the outputs back by (expert, place); ``dense`` dispatches
-    and combines with one-hot einsums. The expert products accumulate in
-    f32 and are cast to x's dtype where JAX casts them; these are large
-    plain products, so they stay batched matmuls."""
+    Which path runs is decided from what the call shows
+    (:func:`_grouped_engages`): a dropless ``scatter`` call in bf16 on the
+    card with autograd off runs :func:`moe_grouped`, the expert products
+    over the routed slots only in a hand-written grouped kernel. Every
+    other call (the CPU, fake and meta tensors, training, ``dense``, a
+    capacity below S, f32) keeps the buffer paths: ``scatter`` writes the
+    kept tokens into a (B, E, C + 1, D) buffer whose last place takes the
+    dropped ones and is sliced off, and gathers the outputs back by
+    (expert, place); ``dense`` dispatches and combines with one-hot
+    einsums; the expert products are batched matmuls over every place.
+    Both accumulate the products in f32 and cast to x's dtype where JAX
+    casts them."""
+    k = experts_per_token
+    if _grouped_engages(params, x, k, capacity_factor, dispatch):
+        return moe_grouped(params, x, experts_per_token=k)
+    return _moe_buffer(params, x, experts_per_token=k,
+                       capacity_factor=capacity_factor, dispatch=dispatch)
+
+
+def _moe_buffer(params: Params, x: torch.Tensor, *, experts_per_token: int,
+                capacity_factor: float, dispatch: str):
+    """:func:`moe`'s buffer paths (see there), whatever the call."""
     B, S, D = x.shape
     E = params["w_gate"].shape[0]
     k = experts_per_token

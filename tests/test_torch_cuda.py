@@ -994,3 +994,76 @@ def test_cuda_process_fabric_refuses_fork(cuda):
     with pytest.raises(ValueError, match="fork"):
         ProcessServingFabric(factory(), RARConfig(), start_method="fork",
                              device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# the dropless MoE's grouped products and combine (csrc/moe_grouped.cu)
+# ---------------------------------------------------------------------------
+
+
+def _moe_case(cuda, counts, K, ncols, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    E_ = len(counts)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32, device=cuda)
+    a = torch.randn((int(sum(counts)), K), generator=g,
+                    device=cuda).bfloat16()
+    w = [(torch.randn((E_, K, ncols), generator=g, device=cuda) /
+          K ** 0.5).bfloat16() for _ in range(2)]
+    wd = (torch.randn((E_, ncols, K), generator=g, device=cuda) /
+          ncols ** 0.5).bfloat16()
+    return a, w[0], w[1], wd, offsets
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() /
+                 want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,K,ncols", [
+    ([128], 64, 128),                    # one tile
+    ([50, 0, 150, 1], 192, 256),         # an empty expert, a 1-slot one
+    ([1000, 3, 0, 0, 377, 129], 512, 384),   # a partial column tile
+    ([200, 57, 0], 72, 136),             # K and columns past a tile
+    ([2048] * 4 + [0] * 4, 2048, 1024)])     # OLMoE's widths
+def test_cuda_moe_grouped_matches_plain(cuda, counts, K, ncols):
+    """Both grouped products within one bf16 rounding of the largest
+    output of their plain versions (f32 sums in another order)."""
+    from repro_torch.kernels import moe_grouped as mg
+    a, wg, wu, wd, offsets = _moe_case(cuda, counts, K, ncols, len(counts))
+    h = ops.moe_gate_up(a, wg, wu, offsets)
+    hp = mg.gate_up_plain(a, wg, wu, offsets)
+    y = ops.moe_down(hp, wd, offsets)
+    yp = mg.down_plain(hp, wd, offsets)
+    assert _rel(h, hp) <= 2 ** -7 and _rel(y, yp) <= 2 ** -7
+
+
+@pytest.mark.cuda
+def test_cuda_moe_combine_is_bit_identical_and_layer_syncs_nothing(cuda):
+    """The combine kernel equals its plain version bit for bit; a whole
+    grouped layer runs under sync debug mode "error" and gives the buffer
+    path's output within two bf16 roundings of its largest magnitude."""
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = L.moe_init(g, 256, 128, 16, torch.bfloat16, cuda)
+    x = torch.randn((3, 200, 256), generator=g, device=cuda).bfloat16()
+    gates, idx, _ = L.moe_gates(params, x, 4)
+    order, offsets = L.moe_sort(idx, 16)
+    y = torch.randn((order.numel(), 256), generator=g, device=cuda).bfloat16()
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=cuda))
+    gk = gates.reshape(-1, 4)
+    assert torch.equal(ops.moe_combine(y, inv, gk),
+                       mg.combine_plain(y, inv, gk))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = L.moe(params, x, experts_per_token=4, capacity_factor=4.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, _ = L._moe_buffer(params, x, experts_per_token=4,
+                            capacity_factor=4.0, dispatch="scatter")
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+    assert _rel(out, want) <= 2 ** -7

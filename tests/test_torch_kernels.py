@@ -440,9 +440,15 @@ def test_cpu_dispatch_never_launches_a_kernel(rng):
     ops.ivf_scan_batch(s, c, ids, ids.view(8, 1), ids, memp, maskp,
                        torch.zeros(8, dtype=torch.bool), ids, ids.view(8, 1),
                        q, 2, 1)
+    offsets = torch.tensor([0, 3, 8], dtype=torch.int32)
+    a = torch.ones((8, 16))
+    w = torch.ones((2, 16, 16))
+    ops.moe_down(ops.moe_gate_up(a, w, w, offsets), w, offsets)
+    ops.moe_combine(a, torch.arange(8), torch.ones((4, 2)))
     assert ops.launch_counts() == {"memory_topk": 0, "memory_top1": 0,
                                    "ivf_route": 0, "ivf_scan": 0,
                                    "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "moe_grouped": 0,
+                                   "moe_combine": 0}
     with pytest.raises(ValueError):
         ops.flash_attention(x.to("meta"), x.to("meta"), x.to("meta"))
